@@ -48,7 +48,11 @@ class Budget:
     twin — bit-identical) on which device (None = ``"cuda"``).  The device
     is placement, not identity: it is left out of equality and of the JSON
     form, as on ``sim.SimConfig``.  ``strict_barrier`` and ``watchdog``
-    are trace-replay semantics, a later slice of the port."""
+    are trace-replay semantics (DESIGN.md §13): strict barriers retire
+    only *delivered* flits (drops leave credits unretired), and a non-zero
+    watchdog aborts a replay after that many consecutive cycles of zero
+    progress in a phase, recording the stalled phase and its unretired
+    credit instead of spinning to budget exhaustion."""
 
     cycles: int = 1200
     warmup: int = 400
@@ -102,9 +106,9 @@ class Experiment:
     budget: Budget = Budget()
     inj_rate: float = 0.25
     seed: int = 0
-    # Faults injected *unrepaired* at runtime (a later slice of the port;
-    # ``sim.SimConfig`` raises for them).  Faults *repaired into* the
-    # fabric belong on the TopologySpec instead, and are supported.
+    # Faults injected *unrepaired* at runtime (drop masks on the healthy
+    # geometry — a resilience grid still batches, DESIGN.md §13).  Faults
+    # *repaired into* the fabric belong on the TopologySpec instead.
     faults: Optional[FaultSpec] = None
     # Static certification pre-flight (DESIGN.md §14): a later slice.
     verify: bool = False
@@ -150,7 +154,9 @@ class Experiment:
         """Cross-product grid around this experiment (rate-major, then
         traffic, then seed, then fault scenario — the ``sweep.grid``
         order), executed as batched kernel launches on the sweep engine.
-        Omitted axes default to this experiment's own value."""
+        Omitted axes default to this experiment's own value; ``faults``
+        takes ``FaultSpec | None`` entries (a resilience grid still
+        batches — fault drop masks are per-point data)."""
         # Materialize each axis once: a one-shot iterator re-iterated by
         # the inner comprehension loops would silently truncate the grid.
         irs = tuple(inj_rates) if inj_rates is not None else (self.inj_rate,)
@@ -250,6 +256,19 @@ class Report:
         baseline delivered nothing."""
         base = healthy.sim.avg_latency
         return (self.sim.avg_latency / base) if base > 0 else float("nan")
+
+    # -- trace replay views (DESIGN.md §12) --------------------------------
+    @property
+    def completion_cycles(self) -> int:
+        """Cycles to drain a trace workload end to end (-1 when the
+        budget ran out, or for statistical traffic)."""
+        return self.sim.completion_cycles
+
+    @property
+    def phase_latencies(self) -> tuple[int, ...]:
+        """Per-phase cycle cost of a trace replay (empty when the traffic
+        is statistical)."""
+        return self.sim.phase_latencies()
 
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:

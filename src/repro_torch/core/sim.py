@@ -23,9 +23,11 @@ the reference for the same configuration and seed: the random streams are
 the reference's own (``core.prng`` reproduces ``jax.random``).
 
 ``backend="cuda"`` runs on a CUDA device or raises; it never falls back to
-the CPU or to the twin.  Runtime fault injection (``SimConfig.faults``)
-and trace replay are later slices of the port (ROADMAP Queue 1 items 6-7)
-and raise ``NotImplementedError``.
+the CPU or to the twin.  Both backends run the reference's three modes:
+statistical traffic, trace replay (a ``repro_torch.trace.Trace`` pattern:
+phase-gated injection, ``strict_barrier`` and the stall ``watchdog``) and
+runtime fault injection (``SimConfig.faults``: per-link drop masks on the
+healthy geometry, with a sixth random stream for the drop draws).
 """
 from __future__ import annotations
 
@@ -58,12 +60,6 @@ PATTERNS = (UNIFORM, BIT_REVERSAL, TRANSPOSE, SHUFFLE, TORNADO, HOTSPOT)
 # them is counted in `lost`.
 ARB_ITERS = 24
 
-_UNPORTED_FAULTS = ("runtime fault injection (SimConfig.faults) is not "
-                    "ported yet: ROADMAP Queue 1 item 7 (faults slice); "
-                    "faults repaired into the fabric "
-                    "(TopologySpec(faults=...)) are supported")
-
-
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     cycles: int = 2000
@@ -75,7 +71,16 @@ class SimConfig:
     seed: int = 0
     starvation_limit: int = 8
     backend: str = "cuda"  # "cuda" (the kernel) | "torch" (the plain twin)
+    # Fault injection (repro_torch.faults): faults are lowered to a per-link
+    # drop mask inside the cycle step — routing is untouched, so whole
+    # resilience grids batch on the healthy geometry.
     faults: Optional[FaultSpec] = None
+    # Trace replay semantics under faults: with strict_barrier a phase
+    # barrier retires *delivered* flits only (dropped flits leave the
+    # barrier waiting forever on a dead link); the watchdog then detects
+    # a phase making no progress for `watchdog` consecutive cycles and
+    # terminates with a per-phase diagnostic instead of spinning to
+    # budget exhaustion.  0 disables the watchdog.
     strict_barrier: bool = False
     watchdog: int = 0
     # Where the run is placed (None = "cuda").  Not part of the result's
@@ -100,17 +105,20 @@ class SimConfig:
             raise ValueError(
                 f"warmup must satisfy 0 <= warmup < cycles, got "
                 f"warmup={self.warmup} cycles={self.cycles}")
-        traffic.resolve(self.pattern)  # raises on unknown patterns
-        if self.faults is not None:
-            if not isinstance(self.faults, FaultSpec):
-                raise TypeError(
-                    f"faults must be a FaultSpec, got "
-                    f"{type(self.faults).__name__}")
-            raise NotImplementedError(_UNPORTED_FAULTS)
+        spec = traffic.resolve(self.pattern)  # raises on unknown patterns
+        if spec.is_trace and self.warmup != 0:
+            raise ValueError(
+                "trace replay needs warmup=0: per-phase completion cycles "
+                "count from cycle 0 and every injected flit is workload")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultSpec):
+            raise TypeError(
+                f"faults must be a FaultSpec, got "
+                f"{type(self.faults).__name__}")
         if self.watchdog < 0:
             raise ValueError(
                 f"watchdog must be >= 0 cycles, got {self.watchdog}")
-        if self.strict_barrier or self.watchdog:
+        if (self.strict_barrier or self.watchdog) and not spec.is_trace:
             raise ValueError(
                 "strict_barrier/watchdog are trace-replay semantics "
                 "(phase barriers); statistical traffic has no barrier "
@@ -152,17 +160,63 @@ class SimResult:
     throughput: float           # delivered packets / cycle
     flit_hops_per_cycle: float  # link traversals / cycle (activity factor)
     per_pe_throughput: float
-    # Trace replay only (a later slice): per-phase completion cycles.
+    # Trace replay only (DESIGN.md §12): the cycle each phase's last flit
+    # retired, -1 for phases the cycle budget did not complete, and
+    # ``-2 - cycle`` for a phase the stall watchdog terminated at
+    # ``cycle`` (DESIGN.md §13).  Empty for statistical traffic.
     phase_done: tuple = ()
-    # Fraction of (src, dst) pairs with a live route (1.0 healthy; below
-    # 1 on a repaired fabric that faults partitioned).
+    # Graceful degradation: fraction of (src, dst) pairs with a live route
+    # (1.0 for healthy fabrics), and — when the stall watchdog fired — the
+    # credits the stalled phase never retired.
     reachability: float = 1.0
     stall_unretired: int = 0
+
+    @property
+    def n_phases(self) -> int:
+        return len(self.phase_done)
+
+    @property
+    def trace_completed(self) -> bool:
+        """True when every phase of a trace replay finished in budget."""
+        return bool(self.phase_done) and self.phase_done[-1] >= 0
 
     @property
     def delivered_fraction(self) -> float:
         """Delivered / offered — the resilience headline (1.0 healthy)."""
         return self.delivered / max(self.offered, 1)
+
+    @property
+    def stalled_phase(self) -> int:
+        """Index of the trace phase the stall watchdog terminated, or -1
+        (phases encode the stall as ``phase_done = -2 - cycle``)."""
+        for i, d in enumerate(self.phase_done):
+            if d <= -2:
+                return i
+        return -1
+
+    @property
+    def stall_cycle(self) -> int:
+        """Cycle at which the watchdog fired, or -1 if it never did."""
+        i = self.stalled_phase
+        return -2 - self.phase_done[i] if i >= 0 else -1
+
+    @property
+    def completion_cycles(self) -> int:
+        """Cycles to drain the whole trace (last phase's completion cycle
+        + 1, since cycles are 0-based); -1 if the budget ran out."""
+        if not self.trace_completed:
+            return -1
+        return self.phase_done[-1] + 1
+
+    def phase_latencies(self) -> tuple[int, ...]:
+        """Per-phase cycle cost: completion-cycle deltas between
+        consecutive phase barriers (phase 0 counts from cycle 0).
+        Incomplete phases report -1."""
+        out, prev = [], -1
+        for d in self.phase_done:
+            out.append(d - prev if d >= 0 else -1)
+            prev = d
+        return tuple(out)
 
     def row(self) -> dict:
         r = {
@@ -177,7 +231,16 @@ class SimResult:
             "dropped": self.dropped, "lost": self.lost,
             "in_flight": self.in_flight,
         }
-        if self.reachability != 1.0:
+        if self.phase_done:
+            r["n_phases"] = self.n_phases
+            r["completion_cycles"] = self.completion_cycles
+            r["phase_latencies"] = list(self.phase_latencies())
+            if self.stalled_phase >= 0:
+                r["stalled_phase"] = self.stalled_phase
+                r["stall_cycle"] = self.stall_cycle
+                r["stall_unretired"] = self.stall_unretired
+        if self.reachability != 1.0 or (self.cfg is not None
+                                        and self.cfg.faults):
             r["reachability"] = round(self.reachability, 4)
             r["delivered_fraction"] = round(self.delivered_fraction, 4)
         return r
@@ -203,12 +266,26 @@ class SweepPoint:
     seed: int
     use_perm: bool
     perm_dst: np.ndarray  # [n_pes] int32
+    # Trace replay tables: [n_phases, n_pes] int32 per-phase destination
+    # map and flit counts.  Statistical points carry the empty [0, n_pes]
+    # shape; points batch together only with equal phase counts.
+    ph_dst: np.ndarray
+    ph_flits: np.ndarray
+    # Fault injection: lowered per-queue drop entries (queue id, drop
+    # probability, onset cycle).  Healthy points carry the empty [0]
+    # shape; faulted points are padded to a small bucket, so nearby fault
+    # counts share one batch.
+    fault_links: np.ndarray   # [F] int32 queue ids (pad -> n_links)
+    fault_drop_p: np.ndarray  # [F] float32 (pad -> 0.0)
+    fault_onset: np.ndarray   # [F] int32
 
 
 def make_point(cfg: SimConfig, n_pes: int,
                topo: Optional[topo_mod.Topology] = None) -> SweepPoint:
     """Host-side SweepPoint for one SimConfig (pattern strings and
-    TrafficSpec instances both resolve through the traffic registry)."""
+    TrafficSpec instances both resolve through the traffic registry).
+    ``topo`` is required only when ``cfg.faults`` is set — fault ids
+    lower to queue-level drop entries against the concrete topology."""
     spec = traffic.resolve(cfg.pattern)
     perm = spec.destinations(n_pes)
     use_perm = perm is not None
@@ -226,11 +303,31 @@ def make_point(cfg: SimConfig, n_pes: int,
                 f"[{n_pes}] with entries in [0, {n_pes})")
         perm = perm.astype(np.int32)
     loc_ring, loc_block = cfg.effective_locality()
+    if spec.is_trace:
+        ph_dst, ph_flits = spec.trace_arrays(n_pes)
+        ph_dst = np.asarray(ph_dst, np.int32)
+        ph_flits = np.asarray(ph_flits, np.int32)
+    else:
+        ph_dst = np.zeros((0, n_pes), np.int32)
+        ph_flits = np.zeros((0, n_pes), np.int32)
+    if cfg.faults:
+        if topo is None:
+            raise ValueError(
+                "SimConfig.faults lowers against the concrete topology; "
+                "call make_point(cfg, n_pes, topo)")
+        cfg.faults.validate_against(topo)
+        f_links, f_drop_p, f_onset = cfg.faults.lower(topo)
+    else:
+        f_links = np.zeros((0,), np.int32)
+        f_drop_p = np.zeros((0,), np.float32)
+        f_onset = np.zeros((0,), np.int32)
     return SweepPoint(inj_rate=np.float32(cfg.inj_rate),
                       loc_ring=np.float32(loc_ring),
                       loc_block=np.float32(loc_block),
                       seed=int(np.int32(cfg.seed)), use_perm=use_perm,
-                      perm_dst=perm)
+                      perm_dst=perm, ph_dst=ph_dst, ph_flits=ph_flits,
+                      fault_links=f_links, fault_drop_p=f_drop_p,
+                      fault_onset=f_onset)
 
 
 # ---------------------------------------------------------------------------
@@ -380,10 +477,15 @@ def build_geometry(topo: topo_mod.Topology, device="cuda") -> Geometry:
 # The hot path.
 # ---------------------------------------------------------------------------
 def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
-                 device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The traffic streams of ``points`` on ``device``: injections
-    [B, cycles, P] bool and destinations [B, cycles, P] int16, drawn
-    exactly as the reference's ``_run_core`` draws them."""
+                 device) -> tuple[torch.Tensor, torch.Tensor,
+                                  Optional[torch.Tensor]]:
+    """The random streams of ``points`` on ``device``, drawn exactly as
+    the reference's ``_run_core`` draws them: injections [B, cycles, P]
+    bool, destinations [B, cycles, P] int16, and — when the points carry
+    fault entries (all of a batch carry the same count F) — the fault
+    draws [B, cycles, F] float32, else None.  Faulted points split their
+    key six ways, healthy points five, as the reference does, so healthy
+    streams are the same with or without faults in the grid."""
     dev = torch.device(device)
     P = n_pes
     shape = (cycles, P)
@@ -392,10 +494,18 @@ def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
     pos_ring = pes % pk.PES_PER_RINGLET
     blk_base = pes - pes % pk.PES_PER_BLOCK
     pos_blk = pes % pk.PES_PER_BLOCK
-    inj_all, dst_all = [], []
+    n_faults = points[0].fault_links.shape[0]
+    if any(pt.fault_links.shape[0] != n_faults for pt in points):
+        raise ValueError("points of one batch must share a fault count")
+    inj_all, dst_all, fu_all = [], [], []
     for pt in points:
-        k_inj, k_dst, k_loc, k_ring, k_blk = prng.split(
-            prng.key(pt.seed, dev), 5)
+        if n_faults:
+            k_inj, k_dst, k_loc, k_ring, k_blk, k_flt = prng.split(
+                prng.key(pt.seed, dev), 6)
+            fu_all.append(prng.uniform(k_flt, (cycles, n_faults)))
+        else:
+            k_inj, k_dst, k_loc, k_ring, k_blk = prng.split(
+                prng.key(pt.seed, dev), 5)
         f32 = dict(dtype=torch.float32, device=dev)
         inj_s = prng.bernoulli(k_inj, torch.tensor(pt.inj_rate, **f32),
                                shape)
@@ -419,7 +529,37 @@ def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
                             torch.where(u_s < loc_both, blk_peer, base_s))
         inj_all.append(inj_s)
         dst_all.append(dst_s.to(torch.int16))
-    return torch.stack(inj_all), torch.stack(dst_all)
+    fault_u = torch.stack(fu_all) if n_faults else None
+    return torch.stack(inj_all), torch.stack(dst_all), fault_u
+
+
+def batch_operands(points: list[SweepPoint], n_pes: int, cycles: int,
+                   device):
+    """Everything the cycle loop reads for a batch of points, on
+    ``device``: ``(inj_s, dst_s, trace, faults, fault_u)`` — the streams
+    of ``draw_streams``, the trace triple ``(ph_dst, ph_flits, ph_total)``
+    (None for statistical traffic) and the fault triple ``(links, drop_p,
+    onset)`` (None for healthy points), stacked over the batch."""
+    dev = torch.device(device)
+    inj_s, dst_s, fault_u = draw_streams(points, n_pes, cycles, dev)
+
+    def stacked(field, dtype):
+        return torch.from_numpy(np.stack(
+            [getattr(pt, field) for pt in points])).to(dtype).to(dev)
+
+    # Trace replay: the phase tables ride the points as data; their
+    # [n_phases, P] shape is the batch's.
+    trace = None
+    if points[0].ph_dst.shape[0]:
+        ph_flits = stacked("ph_flits", torch.int32)
+        trace = (stacked("ph_dst", torch.int32), ph_flits,
+                 ph_flits.sum(dim=2, dtype=torch.int32))
+    faults = None
+    if fault_u is not None:
+        faults = (stacked("fault_links", torch.int32),
+                  stacked("fault_drop_p", torch.float32),
+                  stacked("fault_onset", torch.int32))
+    return inj_s, dst_s, trace, faults, fault_u
 
 
 @dataclasses.dataclass(frozen=True)
@@ -437,14 +577,17 @@ class Metrics:
     wins_by_kind: np.ndarray
     stall_next_kind: np.ndarray
     q_len_by_kind: np.ndarray
+    phase_done: np.ndarray       # [B, n_phases] ([B, 0] when statistical)
     stall_unretired: np.ndarray
 
 
 def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
               warmup: int, starvation_limit: int, arb_iters: int = ARB_ITERS,
-              diagnostics: bool = False, backend: str = "cuda") -> Metrics:
+              diagnostics: bool = False, backend: str = "cuda",
+              strict_barrier: bool = False, watchdog: int = 0) -> Metrics:
     """Run a batch of points on one geometry: ``backend="cuda"`` launches
-    the kernel once for the whole batch, ``"torch"`` loops the twin."""
+    the kernel once for the whole batch, ``"torch"`` loops the twin.  The
+    points share their trace phase count and their fault count."""
     # Queue payload: one packed int32 word per slot, ``born << 11 | dst+1``
     # (n_pes <= 1024 so dst+1 < 2048; empty slot = 0 -> dst -1).
     assert cycles < (1 << 20), "packed born field supports < 2^20 cycles"
@@ -452,24 +595,31 @@ def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
     # flit accrues one cycle of eventual latency per cycle.
     assert cycles * geom.cap_total < (1 << 31), \
         "int32 lat_sum could overflow for this (cycles, topology) budget"
-    inj_s, dst_s = draw_streams(points, geom.n_pes, cycles,
-                                geom.route.device)
+    dev = geom.route.device
+    inj_s, dst_s, trace, faults, fault_u = batch_operands(points,
+                                                          geom.n_pes,
+                                                          cycles, dev)
     kw = dict(warmup=warmup, starvation_limit=starvation_limit,
-              arb_iters=arb_iters, diagnostics=diagnostics)
+              arb_iters=arb_iters, trace=trace, faults=faults,
+              fault_u=fault_u, strict_barrier=strict_barrier,
+              watchdog=watchdog, diagnostics=diagnostics)
     if backend == "cuda":
-        if geom.route.device.type != "cuda":
+        if dev.type != "cuda":
             raise ValueError("backend='cuda' needs a geometry on a CUDA "
                              "device")
-        ql, m_scal, m_kind, _ = noc_step.run_fused(geom, inj_s, dst_s, **kw)
+        ql, m_scal, m_kind, _, ph_done = noc_step.run_fused(
+            geom, inj_s, dst_s, **kw)
     elif backend == "torch":
-        ql, m_scal, m_kind, _ = noc_step.run_plain(geom, inj_s, dst_s, **kw)
+        ql, m_scal, m_kind, _, ph_done = noc_step.run_plain(
+            geom, inj_s, dst_s, **kw)
     else:  # pragma: no cover - SimConfig validates first
         raise ValueError(f"unknown simulator backend {backend!r}")
     kind_oh = geom.kind[None, :] == torch.arange(
         8, dtype=torch.int32, device=ql.device)[:, None]       # [8, L+1]
     q_len_by_kind = (kind_oh[None] * ql[:, None, :]).sum(dim=2)
-    ql, m_scal, m_kind, q_len_by_kind = (
-        x.cpu().numpy() for x in (ql, m_scal, m_kind, q_len_by_kind))
+    ql, m_scal, m_kind, q_len_by_kind, ph_done = (
+        x.cpu().numpy() for x in (ql, m_scal, m_kind, q_len_by_kind,
+                                  ph_done))
     return Metrics(
         delivered=m_scal[:, noc_step.DELIVERED],
         offered=m_scal[:, noc_step.OFFERED],
@@ -482,7 +632,30 @@ def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
         wins_by_kind=m_kind[:, noc_step.KIND_WINS],
         stall_next_kind=m_kind[:, noc_step.KIND_STALLS],
         q_len_by_kind=q_len_by_kind.astype(np.int32),
+        phase_done=ph_done,
         stall_unretired=m_scal[:, noc_step.STALL_CREDIT])
+
+
+# Host-side reachability cache: FaultSpec is frozen/hashable and the
+# route walk is pure, so one walk serves every point sharing (topology,
+# fault set) in a sweep grid.
+_REACH_CACHE: dict = {}
+
+
+def _fault_reachability(topo: topo_mod.Topology,
+                        faults: Optional[FaultSpec]) -> float:
+    if not faults:
+        return topo.reachable_frac  # 1.0 healthy; baked value if repaired
+    key = (id(topo), topo.name, faults)
+    hit = _REACH_CACHE.get(key)
+    if hit is None:
+        dead = faults.dead_queue_mask(topo)
+        hit = (topo.reachable_frac if not dead.any()
+               else topo_mod.reachable_fraction(topo, dead))
+        if len(_REACH_CACHE) > 512:
+            _REACH_CACHE.clear()
+        _REACH_CACHE[key] = hit
+    return hit
 
 
 def _to_result(topo: topo_mod.Topology, cfg: SimConfig, m: Metrics,
@@ -504,7 +677,8 @@ def _to_result(topo: topo_mod.Topology, cfg: SimConfig, m: Metrics,
         throughput=delivered / mc,
         flit_hops_per_cycle=int(m.moved[b]) / mc,
         per_pe_throughput=delivered / mc / topo.n_pes,
-        reachability=topo.reachable_frac,
+        phase_done=tuple(int(d) for d in m.phase_done[b]),
+        reachability=_fault_reachability(topo, cfg.faults),
         stall_unretired=int(m.stall_unretired[b]),
     )
 
@@ -512,10 +686,11 @@ def _to_result(topo: topo_mod.Topology, cfg: SimConfig, m: Metrics,
 def run_batch(topo: topo_mod.Topology, cfgs: list[SimConfig], *,
               diagnostics: bool = False) -> tuple[list[SimResult], Metrics]:
     """Run configs that share a static key (cycles, warmup,
-    starvation_limit, backend, device) as one batch on ``topo``."""
+    starvation_limit, backend, device, barrier semantics, trace phase
+    count, lowered fault count) as one batch on ``topo``."""
     c0 = cfgs[0]
-    key = _static_key(c0)
-    if any(_static_key(c) != key for c in cfgs):
+    key = _static_key(c0, topo)
+    if any(_static_key(c, topo) != key for c in cfgs):
         raise ValueError("run_batch needs configs with one static key; "
                          "core.sweep groups them")
     dev = c0.torch_device()
@@ -528,13 +703,19 @@ def run_batch(topo: topo_mod.Topology, cfgs: list[SimConfig], *,
     points = [make_point(c, topo.n_pes, topo) for c in cfgs]
     m = _run_core(geom, points, cycles=c0.cycles, warmup=c0.warmup,
                   starvation_limit=c0.starvation_limit,
-                  diagnostics=diagnostics, backend=c0.backend)
+                  diagnostics=diagnostics, backend=c0.backend,
+                  strict_barrier=c0.strict_barrier, watchdog=c0.watchdog)
     return [_to_result(topo, c, m, b) for b, c in enumerate(cfgs)], m
 
 
-def _static_key(cfg: SimConfig) -> tuple:
+def _static_key(cfg: SimConfig, topo: topo_mod.Topology) -> tuple:
+    """What configs must share to run as one batch: the run's statics and
+    two array shapes — the trace phase count (0 for statistical traffic)
+    and the padded fault-entry count (0 for healthy points)."""
+    n_faults = cfg.faults.n_lowered(topo) if cfg.faults else 0
     return (cfg.cycles, cfg.warmup, cfg.starvation_limit, cfg.backend,
-            str(cfg.torch_device()))
+            str(cfg.torch_device()), cfg.strict_barrier, cfg.watchdog,
+            traffic.resolve(cfg.pattern).n_trace_phases, n_faults)
 
 
 def simulate(topo: topo_mod.Topology, cfg: SimConfig) -> SimResult:

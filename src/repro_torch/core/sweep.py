@@ -2,12 +2,14 @@
 
 The paper's evaluation (Figs. 9-17) is a grid of simulations over
 injection rates x traffic patterns x seeds x locality regimes.  Every
-per-point parameter (rate, locality, seed, destination map) is data, so
-``sweep()`` groups its configs by the static key (cycles, warmup,
-starvation_limit, backend, device) and runs each group as one batch: the
-batch dimension is written out in the twin and is the kernel's grid, one
-thread block per point.  Results come back in input order and are
-bit-identical to per-point ``sim.simulate``.
+per-point parameter (rate, locality, seed, destination map, trace phase
+tables, fault drop masks) is data, so ``sweep()`` groups its configs by
+the static key (cycles, warmup, starvation_limit, backend, device,
+trace-barrier semantics) and by two array shapes — the trace phase count
+and the lowered fault count, padded to buckets — and runs each group as
+one batch: the batch dimension is written out in the twin and is the
+kernel's grid, one thread block per point.  Results come back in input
+order and are bit-identical to per-point ``sim.simulate``.
 
     topo = TopologySpec("ring_mesh", 256).build()
     cfgs = sweep.grid(inj_rates=(0.25, 0.5, 1.0),
@@ -27,10 +29,15 @@ _UNPORTED_VERIFY = ("static certification (verify=True) is not ported "
                     "yet: ROADMAP Queue 1 item 8 (analysis slice)")
 
 
-def _grouped(cfgs: Sequence[sim.SimConfig]) -> dict[tuple, list[int]]:
+def _grouped(topo: topo_mod.Topology,
+             cfgs: Sequence[sim.SimConfig]) -> dict[tuple, list[int]]:
+    # The trace phase count and the lowered fault count are array shapes,
+    # so points only batch with equal counts; statistical points all have
+    # 0 phases, healthy points 0 faults, and fault lowering pads to bucket
+    # sizes so nearby fault counts coincide.
     groups: dict[tuple, list[int]] = {}
     for i, c in enumerate(cfgs):
-        groups.setdefault(sim._static_key(c), []).append(i)
+        groups.setdefault(sim._static_key(c, topo), []).append(i)
     return groups
 
 
@@ -42,7 +49,7 @@ def sweep(topo: topo_mod.Topology,
     if verify:
         raise NotImplementedError(_UNPORTED_VERIFY)
     out: list[Optional[sim.SimResult]] = [None] * len(cfgs)
-    for idxs in _grouped(cfgs).values():
+    for idxs in _grouped(topo, cfgs).values():
         results, _ = sim.run_batch(topo, [cfgs[i] for i in idxs])
         for i, r in zip(idxs, results):
             out[i] = r
@@ -56,14 +63,19 @@ def grid(inj_rates: Iterable[float] = (0.25,),
          locality_ringlet: float = 0.0, locality_block: float = 0.0,
          starvation_limit: int = 8,
          backend: str = "cuda",
-         device: Optional[str] = None) -> list[sim.SimConfig]:
-    """Cross-product config grid (rate-major, then pattern, then seed).
-    ``patterns`` accepts legacy strings and ``traffic.TrafficSpec``
-    instances alike; the locality kwargs describe the grid's regime and
-    are folded into specs that don't declare their own (declaring both is
-    an error).  ``backend``/``device`` place every point."""
+         device: Optional[str] = None,
+         faults: Iterable = (None,)) -> list[sim.SimConfig]:
+    """Cross-product config grid (rate-major, then pattern, then seed,
+    then fault scenario).  ``patterns`` accepts legacy strings and
+    ``traffic.TrafficSpec`` instances alike; the locality kwargs describe
+    the grid's regime and are folded into specs that don't declare their
+    own (declaring both is an error).  ``backend``/``device`` place every
+    point.  ``faults`` is an axis of ``FaultSpec | None`` scenarios
+    injected *unrepaired* (runtime drop masks on the healthy geometry, so
+    the whole resilience grid still batches)."""
     patterns = tuple(patterns)  # re-iterated per rate: materialize so
     seeds = tuple(seeds)        # one-shot iterators work
+    faults = tuple(faults)
     cfgs = []
     for ir in inj_rates:
         for p in patterns:
@@ -82,8 +94,8 @@ def grid(inj_rates: Iterable[float] = (0.25,),
                               pattern=p, seed=s, locality_ringlet=lr,
                               locality_block=lb,
                               starvation_limit=starvation_limit,
-                              backend=backend, device=device)
-                for s in seeds)
+                              backend=backend, device=device, faults=f)
+                for s in seeds for f in faults)
     return cfgs
 
 

@@ -42,18 +42,20 @@ from repro_torch.core import packet as pk
 
 _REGISTRY: dict[str, type["TrafficSpec"]] = {}
 
-# Kinds whose spec classes live outside ``core`` and are not ported yet:
-# naming one fails with the slice that will bring it.
-_UNPORTED_KINDS = {"trace": "trace replay is ROADMAP Queue 1 item 6 "
-                            "(trace slice)"}
+# Kinds whose spec classes live outside ``repro_torch.core`` (open-registry
+# layering: core never imports them).  ``resolve``/``from_dict`` import the
+# owning module on first sight of the kind, so deserializing e.g. a trace
+# report works without the caller pre-importing ``repro_torch.trace``.
+_LAZY_KINDS = {"trace": "repro_torch.trace"}
 
 
 def _lookup(kind: str) -> Optional[type["TrafficSpec"]]:
     cls = _REGISTRY.get(kind)
-    if cls is None and kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"traffic kind {kind!r} is not ported yet: "
-            f"{_UNPORTED_KINDS[kind]}")
+    if cls is None and kind in _LAZY_KINDS:
+        import importlib
+
+        importlib.import_module(_LAZY_KINDS[kind])
+        cls = _REGISTRY.get(kind)
     return cls
 
 
@@ -126,7 +128,7 @@ class TrafficSpec:
     kind: ClassVar[str] = ""
     is_permutation: ClassVar[bool] = False  # destinations() is a bijection
     self_free: ClassVar[bool] = False       # no source targets itself
-    is_trace: ClassVar[bool] = False        # phased replay (trace slice)
+    is_trace: ClassVar[bool] = False        # phased replay (repro_torch.trace)
 
     def __post_init__(self):
         if not 0 <= self.locality_ringlet + self.locality_block <= 1:
@@ -135,7 +137,7 @@ class TrafficSpec:
     def destinations(self, n_pes: int) -> Optional[np.ndarray]:
         raise NotImplementedError
 
-    # -- trace protocol (overridden by the trace slice's spec) -------------------
+    # -- trace protocol (overridden by repro_torch.trace.Trace) -------------
     @property
     def n_trace_phases(self) -> int:
         """Phase count for trace specs; 0 marks statistical traffic."""

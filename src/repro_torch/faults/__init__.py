@@ -1,13 +1,30 @@
-"""Fault specifications for the Ring-Mesh NoC (port of ``repro.faults``).
+"""Fault injection & graceful degradation for the Ring-Mesh NoC (port of
+``repro.faults``).
 
-``spec`` — frozen, JSON-able ``FaultSpec`` / ``LinkFault`` and the seeded
-``sample_faults`` generator.  Faults repaired into a fabric
-(``TopologySpec(faults=...)``) are supported; runtime injection and the
-repair measurements are a later slice (ROADMAP Queue 1 item 7).
+``spec``   — frozen, JSON-able ``FaultSpec`` / ``LinkFault``, their
+             lowering to the simulator's per-queue drop entries, and the
+             seeded ``sample_faults`` generator.
+``repair`` — ``suggest_repair_morph`` / ``healthy_twin`` /
+             ``merge_faults`` / ``split_faults``: the legs of the paper's
+             §5.1 fault-bypass comparison.  ``measure_repair`` needs the
+             fabric analysis (ROADMAP Queue 1 item 8) and raises.
+
+``repair`` is imported lazily: it imports ``core.spec``, which imports
+``faults.spec`` — an eager import here would close that cycle.
 """
 from repro_torch.faults.spec import (FABRIC_KINDS, FaultSpec, LinkFault,
                                      fabric_channels, link_between,
                                      sample_faults)
 
+_REPAIR_NAMES = ("suggest_repair_morph", "measure_repair", "healthy_twin",
+                 "merge_faults", "split_faults")
+
 __all__ = ["FaultSpec", "LinkFault", "FABRIC_KINDS", "fabric_channels",
-           "link_between", "sample_faults"]
+           "link_between", "sample_faults", *_REPAIR_NAMES]
+
+
+def __getattr__(name):
+    if name in _REPAIR_NAMES:
+        from repro_torch.faults import repair
+        return getattr(repair, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,14 +17,25 @@ failing mid-run), in the id spaces of ``core.topology``:
   ``onset`` on, a flit traversing the channel is dropped with
   probability ``drop_p`` (1.0 + onset>0 models a hard mid-run failure).
 
-In this slice of the port a ``FaultSpec`` attaches to
-``TopologySpec(faults=...)`` — the *repaired* fabric: route tables are
-rebuilt around the dead components (``topology.reroute_avoiding``), dead
-queues are masked out of the structural fan-in candidate tables, and truly
-disconnected (src, dst) pairs are reported on the topology instead of
-crashing.  Injecting faults at run time (``SimConfig(faults=...)``, the
-reference's per-link drop mask lowered into the cycle step) is the faults
-slice (ROADMAP Queue 1 item 7); ``core.sim`` raises for it.
+A ``FaultSpec`` is *where you attach it*:
+
+* ``SimConfig(faults=...)`` / ``Experiment(faults=...)`` — the faults are
+  injected at run time as a per-link drop mask inside the cycle step
+  (``kernels.noc_step``; dead components lower to permanent drop
+  entries).  Routing is untouched — traffic routed into a dead channel is
+  dropped, the paper's switched-off semantics — and the lowered arrays
+  are per-point data, so a whole resilience grid (fault count x fault
+  seed x drop rate) runs as one batch on the healthy geometry.
+* ``TopologySpec(faults=...)`` — the *repaired* fabric: route tables are
+  rebuilt around the dead components (``topology.reroute_avoiding``),
+  dead queues are masked out of the structural fan-in candidate tables,
+  and truly disconnected (src, dst) pairs are reported on the topology
+  instead of crashing.  ``repro_torch.faults.suggest_repair_morph`` maps
+  an injected spec to its repaired twin.
+
+Lowered entry counts are padded to a small static bucket (``_PAD_FLOOR``
+minimum, then powers of two) so nearby fault counts share one batch shape
+— the "fault shape" that joins ``core.sweep``'s grouping.
 """
 from __future__ import annotations
 
@@ -39,6 +50,20 @@ from repro_torch.core import topology as topo_mod
 # Queue kinds a fault may target: fabric channels, not PE inject/eject
 # buffers (a fault there is a dead PE, not a dead link).
 FABRIC_KINDS = (topo_mod.RING, topo_mod.RS2R, topo_mod.R2RS, topo_mod.MESH)
+
+# Minimum padded entry count: fault sets of up to _PAD_FLOOR lowered
+# queues share one static shape (and one batch), then powers of two.
+_PAD_FLOOR = 16
+
+
+def _pad_bucket(n: int) -> int:
+    if n <= 0:
+        return 0
+    b = _PAD_FLOOR
+    while b < n:
+        b *= 2
+    return b
+
 
 @dataclasses.dataclass(frozen=True)
 class LinkFault:
@@ -134,6 +159,36 @@ class FaultSpec:
         # Faults never touch the PE inject/eject buffers (see docstring).
         dead &= np.isin(topo.link_kind, FABRIC_KINDS)
         return dead
+
+    def lower(self, topo: topo_mod.Topology
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Queue-level drop-mask arrays ``(links, drop_p, onset)`` for the
+        simulator: one entry per faulty VC queue (dead components become
+        permanent ``drop_p=1.0`` entries), padded to the static bucket
+        shape.  Pad entries point at the dummy queue row ``n_links`` with
+        ``drop_p=0`` so they can never fire.
+        """
+        entries: list[tuple[int, float, int]] = []
+        for q in np.nonzero(self.dead_queue_mask(topo))[0]:
+            entries.append((int(q), 1.0, 0))
+        for t in self.transient:
+            for q in np.nonzero(topo.link_phys == t.link)[0]:
+                entries.append((int(q), t.drop_p, t.onset))
+        pad = _pad_bucket(len(entries))
+        links = np.full(pad, topo.n_links, np.int32)
+        drop_p = np.zeros(pad, np.float32)
+        onset = np.zeros(pad, np.int32)
+        for i, (q, p, o) in enumerate(entries):
+            links[i], drop_p[i], onset[i] = q, p, o
+        return links, drop_p, onset
+
+    def n_lowered(self, topo: topo_mod.Topology) -> int:
+        """Padded entry count — the static "fault shape" that joins the
+        sweep's grouping key."""
+        n = int(self.dead_queue_mask(topo).sum())
+        n += sum(int((topo.link_phys == t.link).sum())
+                 for t in self.transient)
+        return _pad_bucket(n)
 
     # -- serialization -------------------------------------------------------
     def to_dict(self) -> dict:

@@ -1,8 +1,11 @@
 // The NoC simulator's whole cycle loop as one CUDA kernel (sm_90a).
 //
 // Replaces: src/repro/kernels/noc_step.py:_noc_step_kernel (launched by
-// run_fused there), statistical mode plus the per-kind diagnostics.  The
-// math is that module's cycle_step; the plain PyTorch twin in
+// run_fused there) in all three of its modes: statistical traffic with the
+// per-kind diagnostics, trace replay (phase-gated injection, the phase
+// barrier, strict barriers and the stall watchdog) and runtime fault
+// injection (per-cycle drop masks on granted moves).  The math is that
+// module's cycle_step; the plain PyTorch twin in
 // src/repro_torch/kernels/noc_step.py repeats it and is this kernel's
 // oracle.  Every accumulator is int32, so kernel, twin and reference agree
 // bit for bit.
@@ -27,6 +30,17 @@
 // Per-cycle counts are warp-reduced and summed with shared-memory atomics,
 // which are exact in any order.  Shared-memory residency, clusters, more
 // than one block per point and CUDA graphs are later work.
+//
+// Modes.  Trace replay and faults are template flags of one kernel
+// (noc_step_kernel<TRACE, FAULTS>, one host dispatch), so the statistical
+// instantiation carries none of their code.  Faults: the [F] entries
+// (queue, drop_p, onset) sit in shared memory; each cycle stage 1 marks the
+// entries active this cycle (fault_u < drop_p in float32, cycle >= onset),
+// and stage 3 drops a winner whose target queue an active entry names.
+// Trace: the phase tables stay in global memory, ph_total and ph_done in
+// shared memory, the per-PE sent counts in the workspace; thread 0 closes
+// each cycle with the barrier update (post-add credit, cursor advance,
+// watchdog), and a last block barrier publishes it before the next cycle.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -34,24 +48,28 @@ namespace {
 
 // Metric slots (kernels/noc_step.py).
 constexpr int DELIVERED = 0, OFFERED = 1, ACCEPTED = 2, DROPPED = 3,
-              LOST = 4, LAT_SUM = 5, MOVED = 6, N_SCALARS = 8;
+              LOST = 4, LAT_SUM = 5, MOVED = 6, STALL_CREDIT = 7,
+              N_SCALARS = 8;
 constexpr int N_KIND_ROWS = 3;
 // Per-cycle counters in shared memory.
 constexpr int C_DELIV = 0, C_OFFER = 1, C_ACC = 2, C_DROP_INJ = 3,
               C_DROP_ROUTE = 4, C_LOST_ENQ = 5, C_RESID = 6, C_LAT = 7,
-              C_MOVED = 8, C_WINS = 9, C_STALLS = 17, N_CYC = 25;
+              C_MOVED = 8, C_WINS = 9, C_STALLS = 17, C_FAULT = 25,
+              N_CYC = 26;
 
-// Workspace layout, in int32 words per point.
+// Workspace layout, in int32 words per point (`sent` is trace mode's
+// per-PE count of flits injected in the current phase).
 struct Work {
   int32_t *q_pack, *q_len, *wait, *head, *nxt, *score, *active, *win,
-      *feas, *send, *best;
+      *feas, *send, *best, *sent;
 };
 
-__host__ __device__ inline long long work_words(int L1, int NP1, int depth) {
-  return (long long)L1 * depth + 10LL * L1 + NP1;
+__host__ __device__ inline long long work_words(int L1, int NP1, int depth,
+                                                int P) {
+  return (long long)L1 * depth + 10LL * L1 + NP1 + P;
 }
 
-__device__ inline Work carve(int32_t* base, int L1, int depth) {
+__device__ inline Work carve(int32_t* base, int L1, int NP1, int depth) {
   Work w;
   w.q_pack = base;
   w.q_len = w.q_pack + (size_t)L1 * depth;
@@ -64,6 +82,7 @@ __device__ inline Work carve(int32_t* base, int L1, int depth) {
   w.feas = w.win + L1;
   w.send = w.feas + L1;
   w.best = w.send + L1;
+  w.sent = w.best + NP1;
   return w;
 }
 
@@ -95,8 +114,18 @@ struct Params {
   int32_t* m_scal_out;    // [B, 8]
   int32_t* m_kind_out;    // [B, 3, 8]
   int32_t* passes_out;    // [B] arbitration passes run
+  // Trace replay (TRACE): per-point phase tables and completion cycles.
+  const int32_t* ph_dst;    // [B, n_phases, P]
+  const int32_t* ph_flits;  // [B, n_phases, P]
+  const int32_t* ph_total;  // [B, n_phases]
+  int32_t* ph_done_out;     // [B, n_phases]
+  // Fault injection (FAULTS): per-point entries and the uniform stream.
+  const float* fault_u;     // [B, cycles, F]
+  const int32_t* f_links;   // [B, F] queue ids (pad = L)
+  const float* f_drop;      // [B, F] (pad = 0)
+  const int32_t* f_onset;   // [B, F]
   int L1, P, NP1, Fc, Fi, depth, cycles, warmup, starv, arb_iters,
-      diagnostics, pow2;
+      diagnostics, pow2, n_phases, strict_barrier, watchdog, F;
 };
 
 // One select + feasibility pass of the grant/re-arbitrate fixpoint.
@@ -134,16 +163,34 @@ __device__ int arb_pass(const Params& p, const Work& w) {
   return __syncthreads_or(bad);
 }
 
+template <bool TRACE, bool FAULTS>
 __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int L1 = p.L1, L = L1 - 1, P = p.P, D = p.depth;
-  const Work w = carve(p.work + (size_t)b * work_words(L1, p.NP1, D), L1, D);
+  const Work w = carve(p.work + (size_t)b * work_words(L1, p.NP1, D, P), L1,
+                       p.NP1, D);
   const uint8_t* inj = p.inj + (size_t)b * p.cycles * P;
   const int16_t* dst = p.dst + (size_t)b * p.cycles * P;
 
   __shared__ int cyc[N_CYC];
   __shared__ int m_scal[N_SCALARS];
   __shared__ int m_kind[2 * 8];
+  // Dynamic shared memory: fault mode's [F] entries and per-cycle active
+  // flags, then trace mode's ph_total and ph_done [n_phases].
+  extern __shared__ int dyn[];
+  int* f_links = dyn;
+  float* f_drop = reinterpret_cast<float*>(dyn + p.F);
+  int* f_onset = dyn + 2 * p.F;
+  int* f_act = dyn + 3 * p.F;
+  int* ph_total = dyn + 4 * p.F;
+  int* ph_done = ph_total + p.n_phases;
+  // Trace barrier state (thread 0 writes it at the end of a cycle).
+  __shared__ int s_cur, s_credit, s_stall, s_done_now;
+  const int NPH = p.n_phases;
+  const int32_t* ph_dst = p.ph_dst + (size_t)b * NPH * P;
+  const int32_t* ph_flits = p.ph_flits + (size_t)b * NPH * P;
+  const float* fault_u = p.fault_u + (size_t)b * p.cycles * p.F;
+
   for (int i = tid; i < L1 * D; i += nt) w.q_pack[i] = 0;
   for (int r = tid; r < L1; r += nt) {
     w.q_len[r] = 0;
@@ -152,11 +199,36 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
   if (tid < N_CYC) cyc[tid] = 0;
   if (tid < N_SCALARS) m_scal[tid] = 0;
   if (tid < 16) m_kind[tid] = 0;
+  if constexpr (FAULTS) {
+    for (int f = tid; f < p.F; f += nt) {
+      f_links[f] = p.f_links[(size_t)b * p.F + f];
+      f_drop[f] = p.f_drop[(size_t)b * p.F + f];
+      f_onset[f] = p.f_onset[(size_t)b * p.F + f];
+    }
+  }
+  if constexpr (TRACE) {
+    for (int i = tid; i < P; i += nt) w.sent[i] = 0;
+    for (int i = tid; i < NPH; i += nt) {
+      ph_total[i] = p.ph_total[(size_t)b * NPH + i];
+      ph_done[i] = -1;
+    }
+    if (tid == 0) {
+      s_cur = 0;
+      s_credit = 0;
+      s_stall = 0;
+      s_done_now = 0;
+    }
+  }
   int passes = 0;  // meaningful in thread 0
   __syncthreads();
 
   for (int cycle = 0; cycle < p.cycles; ++cycle) {
-    // --- 1. routing and arbitration scores ------------------------------
+    // --- 1. routing and arbitration scores (+ this cycle's fault flags) -
+    if constexpr (FAULTS) {
+      for (int f = tid; f < p.F; f += nt)
+        f_act[f] = fault_u[(size_t)cycle * p.F + f] < f_drop[f] &&
+                   cycle >= f_onset[f];
+    }
     for (int r = tid; r < L1; r += nt) {
       const int hp = w.q_pack[(size_t)r * D];
       w.head[r] = hp;  // pre-move head: enqueue reads it after the shift
@@ -183,8 +255,8 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
     }
     passes += it;
 
-    // --- 3. dequeue, deliveries, aging ----------------------------------
-    int deliv = 0, lat = 0, moved = 0, resid = 0, droute = 0;
+    // --- 3. dequeue, deliveries, aging, fault drops ----------------------
+    int deliv = 0, lat = 0, moved = 0, resid = 0, droute = 0, fdrop = 0;
     for (int r = tid; r < L1; r += nt) {
       const int ql = w.q_len[r];
       const bool valid = ql > 0;
@@ -195,14 +267,23 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
       const bool drop_route = valid && nx < 0;
       const bool deq = winner || drop_route;
       const bool sink = p.is_sink[nc];
-      w.send[r] = winner && !sink;
-      if (winner && sink) {
+      // A winner whose wire is faulty this cycle leaves its queue (and
+      // counts as moved) but never arrives.
+      bool lost_on_wire = false;
+      if constexpr (FAULTS) {
+        if (winner)
+          for (int k = 0; k < p.F; ++k)
+            lost_on_wire |= f_act[k] && f_links[k] == nc;
+      }
+      w.send[r] = winner && !sink && !lost_on_wire;
+      if (winner && sink && !lost_on_wire) {
         ++deliv;
         lat += cycle - (w.head[r] >> 11);
       }
       moved += winner;
       resid += won && !f;
       droute += drop_route;
+      fdrop += lost_on_wire;
       w.wait[r] = (valid && !deq) ? w.wait[r] + 1 : 0;
       if (deq) {
         int32_t* q = w.q_pack + (size_t)r * D;
@@ -222,12 +303,20 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
     block_add(&cyc[C_MOVED], moved);
     block_add(&cyc[C_RESID], resid);
     block_add(&cyc[C_DROP_ROUTE], droute);
+    if constexpr (FAULTS) block_add(&cyc[C_FAULT], fdrop);
     __syncthreads();
 
     // --- 4. enqueue through the fan-in table, then injection -------------
     // Nothing routes into an inject queue, and each PE's inject queue is
     // the one row whose inj_pe names it, so every row is written by its
-    // own thread only, from post-dequeue lengths.
+    // own thread only, from post-dequeue lengths.  In trace mode the same
+    // thread owns its PE's `sent` count.
+    int cur = 0;
+    bool phase_active = false;
+    if constexpr (TRACE) {
+      phase_active = s_cur < NPH;  // the unclipped cursor
+      cur = clampi(s_cur, 0, NPH - 1);
+    }
     int offer = 0, accd = 0, dinj = 0, lost = 0;
     for (int r = tid; r < L1; r += nt) {
       int src = -1;
@@ -244,18 +333,27 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
       lost += lost_row;
       const int pe = p.inj_pe[r];
       bool acc = false;
+      int dst_pe = 0;
       if (pe >= 0) {
-        const bool want = inj[(size_t)cycle * P + pe];
+        bool want = inj[(size_t)cycle * P + pe];
         const bool room = ql < cap;
-        acc = want && room;
-        offer += want;
+        if constexpr (TRACE) {
+          const size_t at = (size_t)cur * P + pe;
+          want = want && phase_active && ph_flits[at] - w.sent[pe] > 0;
+          dst_pe = ph_dst[at];
+          acc = want && room;
+          w.sent[pe] += acc;
+        } else {
+          dst_pe = dst[(size_t)cycle * P + pe];
+          acc = want && room;
+          offer += want;
+          dinj += want && !room;
+        }
         accd += acc;
-        dinj += want && !room;
       }
       if (enq || acc) {
         const int val = enq ? w.head[clampi(src, 0, L)]
-                            : ((cycle << 11) |
-                               ((int)dst[(size_t)cycle * P + pe] + 1));
+                            : ((cycle << 11) | (dst_pe + 1));
         w.q_pack[(size_t)r * D + clampi(ql, 0, D - 1)] = val;
         w.q_len[r] = ql + 1;
       }
@@ -267,18 +365,50 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
     __syncthreads();
 
     // --- 5. metric accumulation (warmup-gated; `lost` ungated) ----------
+    // Trace mode: offered := accepted and a refused injection is not a
+    // drop (it retries next cycle).
     if (tid == 0) {
       const int g = cycle >= p.warmup;
+      const int hard = cyc[C_DROP_ROUTE] + cyc[C_LOST_ENQ] +
+                       (FAULTS ? cyc[C_FAULT] : 0);
       m_scal[DELIVERED] += g * cyc[C_DELIV];
-      m_scal[OFFERED] += g * cyc[C_OFFER];
+      m_scal[OFFERED] += g * (TRACE ? cyc[C_ACC] : cyc[C_OFFER]);
       m_scal[ACCEPTED] += g * cyc[C_ACC];
-      m_scal[DROPPED] +=
-          g * (cyc[C_DROP_INJ] + cyc[C_DROP_ROUTE] + cyc[C_LOST_ENQ]);
+      m_scal[DROPPED] += g * (hard + (TRACE ? 0 : cyc[C_DROP_INJ]));
       m_scal[LOST] += cyc[C_LOST_ENQ] + cyc[C_RESID];
       m_scal[LAT_SUM] += g * cyc[C_LAT];
       m_scal[MOVED] += g * cyc[C_MOVED];
       for (int k = 0; k < 16; ++k) m_kind[k] += g * cyc[C_WINS + k];
+      if constexpr (TRACE) {
+        // --- 6. phase barrier, on the cycle's closed counts -------------
+        const int retired =
+            p.strict_barrier ? cyc[C_DELIV] : cyc[C_DELIV] + hard;
+        const int credit = s_credit + retired;
+        const int total = ph_total[cur];
+        const bool done_now = phase_active && credit >= total;
+        if (done_now) ph_done[cur] = cycle;
+        s_cur += done_now;
+        s_credit = done_now ? 0 : credit;
+        s_done_now = done_now;
+        if (p.watchdog) {
+          const bool progress =
+              retired > 0 || cyc[C_ACC] > 0 || cyc[C_MOVED] > 0;
+          s_stall = (phase_active && !done_now && !progress) ? s_stall + 1
+                                                             : 0;
+          if (phase_active && !done_now && s_stall >= p.watchdog) {
+            ph_done[cur] = -2 - cycle;
+            m_scal[STALL_CREDIT] += total - s_credit;
+            s_cur = NPH;
+          }
+        }
+      }
       for (int k = 0; k < N_CYC; ++k) cyc[k] = 0;
+    }
+    if constexpr (TRACE) {
+      // Publish the cursor; a finished phase's sent counts restart at 0.
+      __syncthreads();
+      if (s_done_now)
+        for (int i = tid; i < P; i += nt) w.sent[i] = 0;
     }
     // The next writes to cyc[] come after stage 1's barrier.
   }
@@ -289,32 +419,42 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
   if (tid < N_KIND_ROWS * 8)
     p.m_kind_out[b * N_KIND_ROWS * 8 + tid] = tid < 16 ? m_kind[tid] : 0;
   if (tid == 0) p.passes_out[b] = passes;
+  if constexpr (TRACE)
+    for (int i = tid; i < NPH; i += nt)
+      p.ph_done_out[(size_t)b * NPH + i] = ph_done[i];
 }
 
 }  // namespace
 
 extern "C" {
 
-long long noc_step_workspace_words(int L1, int NP1, int depth) {
-  return work_words(L1, NP1, depth);
+long long noc_step_workspace_words(int L1, int NP1, int depth, int P) {
+  return work_words(L1, NP1, depth, P);
 }
 
 const char* noc_step_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches the kernel on `stream` (grid = batch, one block per point) and
-// returns cudaGetLastError() as an int (0 = launched).
+// Launches the kernel on `stream` (grid = batch, one block per point) in
+// the mode its operands ask for: trace replay when n_phases > 0, fault
+// injection when F > 0.  Returns cudaGetLastError() as an int (0 =
+// launched).
 int noc_step_launch(const void* inj, const void* dst, const void* route,
                     const void* kind, const void* prio, const void* cap,
                     const void* phys, const void* is_sink,
                     const void* pe_src_link, const void* inj_pe,
                     const void* cand, const void* intab, void* work,
                     void* q_len_out, void* m_scal_out, void* m_kind_out,
-                    void* passes_out, int batch, int L1, int P, int NP1,
+                    void* passes_out, const void* ph_dst,
+                    const void* ph_flits, const void* ph_total,
+                    void* ph_done_out, const void* fault_u,
+                    const void* f_links, const void* f_drop,
+                    const void* f_onset, int batch, int L1, int P, int NP1,
                     int Fc, int Fi, int depth, int cycles, int warmup,
                     int starv, int arb_iters, int diagnostics, int pow2,
-                    int threads, void* stream) {
+                    int threads, int n_phases, int strict_barrier,
+                    int watchdog, int F, void* stream) {
   (void)pe_src_link;  // implied by inj_pe (checked when geometry is built)
   Params p;
   p.inj = static_cast<const uint8_t*>(inj);
@@ -333,6 +473,14 @@ int noc_step_launch(const void* inj, const void* dst, const void* route,
   p.m_scal_out = static_cast<int32_t*>(m_scal_out);
   p.m_kind_out = static_cast<int32_t*>(m_kind_out);
   p.passes_out = static_cast<int32_t*>(passes_out);
+  p.ph_dst = static_cast<const int32_t*>(ph_dst);
+  p.ph_flits = static_cast<const int32_t*>(ph_flits);
+  p.ph_total = static_cast<const int32_t*>(ph_total);
+  p.ph_done_out = static_cast<int32_t*>(ph_done_out);
+  p.fault_u = static_cast<const float*>(fault_u);
+  p.f_links = static_cast<const int32_t*>(f_links);
+  p.f_drop = static_cast<const float*>(f_drop);
+  p.f_onset = static_cast<const int32_t*>(f_onset);
   p.L1 = L1;
   p.P = P;
   p.NP1 = NP1;
@@ -345,8 +493,21 @@ int noc_step_launch(const void* inj, const void* dst, const void* route,
   p.arb_iters = arb_iters;
   p.diagnostics = diagnostics;
   p.pow2 = pow2;
+  p.n_phases = n_phases;
+  p.strict_barrier = strict_barrier;
+  p.watchdog = watchdog;
+  p.F = F;
+  const size_t shared = sizeof(int) * (4 * (size_t)F + 2 * (size_t)n_phases);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   (void)cudaGetLastError();  // clear any stale error before this launch
-  noc_step_kernel<<<batch, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  if (n_phases > 0 && F > 0)
+    noc_step_kernel<true, true><<<batch, threads, shared, s>>>(p);
+  else if (n_phases > 0)
+    noc_step_kernel<true, false><<<batch, threads, shared, s>>>(p);
+  else if (F > 0)
+    noc_step_kernel<false, true><<<batch, threads, shared, s>>>(p);
+  else
+    noc_step_kernel<false, false><<<batch, threads, shared, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,18 +7,22 @@ tensor is ``[B, ...]`` and the geometry is shared by the whole batch, which
 is how ``core.sweep`` runs a grid of points on one topology.  ``run_plain``
 loops it over cycles.  It is the oracle of the CUDA kernel.
 
+The step has the reference's three modes: statistical traffic, trace
+replay (``trace=``: phase-gated injection with a barrier between phases,
+``strict_barrier`` and the stall ``watchdog``) and runtime fault injection
+(``faults=`` with a per-cycle ``fault_u`` row: granted flits crossing a
+faulty wire are dropped).  Trace replay and faults combine.
+
 ``run_fused`` runs the whole cycle loop as one launch of the hand-written
 kernel ``csrc/noc_step.cu`` (the port of the reference's Pallas
 ``_noc_step_kernel``): one thread block per sweep point, looping over the
-cycles inside the kernel.  It takes CUDA tensors; given CPU tensors it runs
-``run_plain`` instead, which is how the CPU tests reach it.  It never falls
-back from a CUDA tensor to the twin: a missing compiler, a refused launch
-or a fault raises.
+cycles inside the kernel, with trace replay and faults as compile-time
+modes.  It takes CUDA tensors only: it never runs the twin in its place,
+and a missing compiler, a refused launch or a fault raises.  ``run_plain``
+is the CPU's path.
 
 Every accumulator is an int32, so the twin, the kernel and the reference
-agree bit for bit; there is no reduction-order slack to allow for.  This
-slice ports statistical traffic; the reference kernel's trace-replay and
-fault-injection modes are later slices (ROADMAP Queue 2 item 1).
+agree bit for bit; there is no reduction-order slack to allow for.
 """
 from __future__ import annotations
 
@@ -38,20 +42,34 @@ import torch
 # names of the [N_SCALARS] int32 vector, then the rows of the
 # [N_KIND_ROWS, 8] per-queue-kind table.  KIND_QLEN is filled by
 # ``core.sim`` from the final queue lengths, not per cycle; STALL_CREDIT
-# belongs to trace replay and stays 0 here.
+# records the credits the stall watchdog found unretired when it
+# terminated a trace phase (0 otherwise).
 (DELIVERED, OFFERED, ACCEPTED, DROPPED, LOST, LAT_SUM, MOVED,
  STALL_CREDIT) = range(8)
 N_SCALARS = 8
 KIND_WINS, KIND_STALLS, KIND_QLEN = range(3)
 N_KIND_ROWS = 3
 
-# Launches of the CUDA kernel since the last ``reset_launches()``.
+# Launches of the CUDA kernel since the last ``reset_launches()``: in all,
+# and by mode.  A launch with both trace replay and faults counts under
+# both of those modes.
+STATISTICAL, TRACE, FAULTS = "noc_step", "noc_step[trace]", "noc_step[faults]"
 launches = 0
+mode_launches = {STATISTICAL: 0, TRACE: 0, FAULTS: 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for k in mode_launches:
+        mode_launches[k] = 0
+
+
+def launch_modes(trace, faults) -> tuple[str, ...]:
+    """The modes a launch with these operands runs."""
+    modes = ((TRACE,) if trace is not None else ()) + (
+        (FAULTS,) if faults is not None else ())
+    return modes or (STATISTICAL,)
 
 
 class IndexTables(NamedTuple):
@@ -85,16 +103,27 @@ def index_tables(geom, depth: int) -> IndexTables:
         col_k=torch.arange(depth, **i32)[None, None, :])
 
 
-def initial_state(batch: int, n_links: int, depth: int, device):
+def initial_state(batch: int, n_links: int, depth: int, device, *,
+                  n_pes: int = 0, n_phases: int = 0):
     """Zeroed carry: (packed queue words [B, L+1, depth], queue lengths
     [B, L+1], aging counters [B, L+1], scalar metrics [B, 8], per-kind
-    metrics [B, 3, 8]), all int32."""
+    metrics [B, 3, 8]), all int32.  With ``n_phases > 0`` (trace replay)
+    the carry extends to the 10-tuple: + (phase cursor [B], per-PE flits
+    sent [B, P], retired-flit credit [B], per-phase completion cycles
+    [B, n_phases] initialized -1, stall-watchdog counter [B])."""
     z = dict(dtype=torch.int32, device=device)
-    return (torch.zeros((batch, n_links + 1, depth), **z),
+    base = (torch.zeros((batch, n_links + 1, depth), **z),
             torch.zeros((batch, n_links + 1), **z),
             torch.zeros((batch, n_links + 1), **z),
             torch.zeros((batch, N_SCALARS), **z),
             torch.zeros((batch, N_KIND_ROWS, 8), **z))
+    if n_phases <= 0:
+        return base
+    return base + (torch.zeros((batch,), **z),
+                   torch.zeros((batch, n_pes), **z),
+                   torch.zeros((batch,), **z),
+                   torch.full((batch, n_phases), -1, **z),
+                   torch.zeros((batch,), **z))
 
 
 def score_pow2(n_rows: int) -> int:
@@ -104,8 +133,10 @@ def score_pow2(n_rows: int) -> int:
 
 
 def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
-               dst: torch.Tensor, *, warmup: int, starvation_limit: int,
-               arb_iters: int, diagnostics: bool = False,
+               dst: torch.Tensor, fault_u: torch.Tensor | None = None, *,
+               warmup: int, starvation_limit: int, arb_iters: int,
+               trace=None, faults=None, strict_barrier: bool = False,
+               watchdog: int = 0, diagnostics: bool = False,
                idx: IndexTables | None = None):
     """One simulator cycle for a batch of points.
 
@@ -115,8 +146,41 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
     needed (the first select plus one per re-arbitration).  The model and
     its order of updates are the reference's, line for line; comments mark
     where a torch idiom replaces a JAX one.
+
+    ``trace`` switches on phase-gated replay: ``(ph_dst [B, n_phases, P],
+    ph_flits [B, n_phases, P], ph_total [B, n_phases])`` int32, with
+    ``state`` the 10-tuple of ``initial_state(..., n_phases=...)``.  The
+    injection row is masked to PEs with flits left in the current phase,
+    destinations come from the phase's map, and the cursor advances at the
+    END of the cycle once the phase's flits have all retired (delivered,
+    or — unless ``strict_barrier`` — dropped or lost).  ``watchdog > 0``
+    ends a phase that made no progress for that many cycles, recording
+    ``-2 - cycle`` and the unretired credit in ``STALL_CREDIT``.
+
+    ``faults`` switches on fault injection: ``(links [B, F] int32 queue
+    ids, drop_p [B, F] float32, onset [B, F] int32)`` with ``fault_u`` the
+    [B, F] float32 uniform row of this cycle.  A flit granted a move into
+    a queue named by an entry with ``fault_u < drop_p`` and
+    ``cycle >= onset`` is dropped on the wire: it leaves its queue and
+    counts as moved and dropped, but never arrives.  Pad entries name the
+    dummy row with ``drop_p = 0`` and never fire.
     """
-    q_pack, q_len, wait, m_scal, m_kind = state
+    if trace is None:
+        q_pack, q_len, wait, m_scal, m_kind = state
+    else:
+        (q_pack, q_len, wait, m_scal, m_kind,
+         ph_idx, sent, credit, ph_done, stall) = state
+        ph_dst, ph_flits, ph_total = trace
+        n_phases = ph_dst.shape[1]
+        batch_ids = torch.arange(ph_idx.shape[0], device=ph_idx.device)
+        # The cursor is clipped for the gathers; `active` reads it unclipped.
+        cur = ph_idx.clamp(0, n_phases - 1).long()
+        active = ph_idx < n_phases
+        cur_flits = ph_flits[batch_ids, cur]                  # [B, P]
+        # The Bernoulli row throttles bandwidth (inj_rate=1.0 -> inject as
+        # fast as back-pressure allows); the phase gate does the rest.
+        inj = inj & active[:, None] & (cur_flits - sent > 0)
+        dst = ph_dst[batch_ids, cur]
     lp1, p_pes = geom.route.shape
     n_links = lp1 - 1
     depth = q_pack.shape[2]
@@ -161,8 +225,8 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
     # most arb_iters - 1 re-arbitrations run.  A pass on a point whose
     # winner set is already feasible changes nothing, so the batch runs
     # until every point is feasible, as vmap does.
-    active = contend
-    winner = select(active)
+    contenders = contend
+    winner = select(contenders)
     feas_w = feasible(winner)
     passes = torch.ones(q_len.shape[0], dtype=torch.int32,
                         device=q_len.device)
@@ -171,15 +235,29 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
         if not bool(bad.any()):
             break
         passes += bad.to(torch.int32)
-        active = active & (~winner | feas_w)
-        winner = select(active)
+        contenders = contenders & (~winner | feas_w)
+        winner = select(contenders)
         feas_w = feasible(winner)
     residue = winner & ~feas_w
     winner = winner & ~residue
 
     deq = winner | drop_route
     sink = geom.is_sink[nxt_cl]
-    send = winner & ~sink
+    # Fault injection: a granted flit crossing a faulty wire is dropped on
+    # the wire (it leaves its source queue but never arrives).  faulty_now
+    # is a scatter-free [F] x [L+1] compare collapsed over the entries.
+    if faults is not None:
+        f_links, f_drop_p, f_onset = faults
+        f_act = (fault_u < f_drop_p) & (cycle >= f_onset)        # [B, F]
+        faulty_now = ((f_links[:, :, None] == idx.row_col[None, :, 0])
+                      & f_act[:, :, None]).any(dim=1)           # [B, L+1]
+        fault_drop = winner & torch.gather(faulty_now, 1, nxt_cl)
+        send = winner & ~sink & ~fault_drop
+        deliver = winner & sink & ~fault_drop
+    else:
+        fault_drop = None
+        send = winner & ~sink
+        deliver = winner & sink
 
     # --- 3. apply moves ---------------------------------------------------
     shifted = torch.cat([q_pack[:, :, 1:], torch.zeros_like(q_pack[:, :, :1])],
@@ -196,7 +274,6 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
     lost_enq_row = has_in & (q_len >= geom.cap)
     enq_row = has_in & ~lost_enq_row
 
-    deliver = winner & sink
     delivered_c = deliver.sum(dim=1)
     lat_c = torch.where(deliver, cycle - head_born, 0).sum(dim=1)
     moved_c = winner.sum(dim=1)
@@ -219,8 +296,17 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
     lost_c = lost_enq_row.sum(dim=1)
     acc_c = acc.sum(dim=1)
     hard_drop_c = drop_route.sum(dim=1) + lost_c
-    offered_c = inj.sum(dim=1)
-    dropped_c = (inj & ~room).sum(dim=1) + hard_drop_c
+    if fault_drop is not None:
+        hard_drop_c = hard_drop_c + fault_drop.sum(dim=1)
+    if trace is None:
+        offered_c = inj.sum(dim=1)
+        dropped_c = (inj & ~room).sum(dim=1) + hard_drop_c
+    else:
+        # Trace semantics: a blocked injection retries next cycle, so
+        # offered := accepted and back-pressure is not a drop; conservation
+        # offered == delivered + dropped + in_flight stays exact.
+        offered_c = acc_c
+        dropped_c = hard_drop_c
     zero = torch.zeros_like(lost_c)
     m_scal = m_scal + torch.stack([
         g * delivered_c, g * offered_c, g * acc_c, g * dropped_c,
@@ -235,29 +321,69 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
                       & stalled[:, None, :]).sum(dim=2)
         m_kind = m_kind + torch.stack(
             [wins, stalls, torch.zeros_like(wins)], dim=1).to(torch.int32)
-    return (q_pack, q_len, wait, m_scal, m_kind), passes
+    if trace is None:
+        return (q_pack, q_len, wait, m_scal, m_kind), passes
+
+    # --- 6. phase barrier (trace mode) -----------------------------------
+    # A flit retires when it delivers or (unless strict_barrier) is
+    # dropped or lost; the phase completes once all its flits retired.  The
+    # cursor advances at the END of the cycle, so phase i+1 first injects
+    # at cycle+1 — strictly after phase i's last delivery (ph_done[i]).
+    sent = sent + acc.to(torch.int32)
+    retired_c = delivered_c if strict_barrier else delivered_c + hard_drop_c
+    credit = credit + retired_c.to(torch.int32)
+    cur_total = ph_total[batch_ids, cur]
+    done_now = active & (credit >= cur_total)
+    at_cur = torch.arange(n_phases, device=cur.device)[None, :] == cur[:, None]
+    ph_done = torch.where(done_now[:, None] & at_cur, cycle, ph_done)
+    ph_idx = ph_idx + done_now.to(torch.int32)
+    sent = torch.where(done_now[:, None], 0, sent)
+    credit = torch.where(done_now, 0, credit)
+    if watchdog:
+        # Progress = the active phase retired credit, accepted an
+        # injection, or moved a flit (congestion is not a stall).
+        progress = (retired_c > 0) | (acc_c > 0) | (moved_c > 0)
+        stall = torch.where(active & ~done_now & ~progress, stall + 1, 0)
+        fire = active & ~done_now & (stall >= watchdog)
+        # The stalled phase records -2 - cycle, the unretired credit lands
+        # in STALL_CREDIT, and the cursor jumps past the end.
+        ph_done = torch.where(fire[:, None] & at_cur, -2 - cycle, ph_done)
+        m_scal[:, STALL_CREDIT] += (fire.to(torch.int32)
+                                    * (cur_total - credit))
+        ph_idx = torch.where(fire, n_phases, ph_idx)
+    return ((q_pack, q_len, wait, m_scal, m_kind,
+             ph_idx, sent, credit, ph_done, stall), passes)
 
 
 def run_plain(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
               warmup: int, starvation_limit: int, arb_iters: int,
+              trace=None, faults=None, fault_u: torch.Tensor | None = None,
+              strict_barrier: bool = False, watchdog: int = 0,
               diagnostics: bool = False):
     """The plain twin of ``run_fused``: ``cycle_step`` looped over the
     cycles.  ``inj_s`` is [B, cycles, P] bool and ``dst_s`` [B, cycles, P]
-    int16.  Returns ``(q_len [B, L+1], m_scal [B, 8], m_kind [B, 3, 8],
-    passes [B])`` int32."""
-    batch, cycles, _ = inj_s.shape
+    int16; ``trace`` and ``faults`` are ``cycle_step``'s triples and
+    ``fault_u`` the [B, cycles, F] float32 stream.  Returns ``(q_len
+    [B, L+1], m_scal [B, 8], m_kind [B, 3, 8], passes [B], ph_done
+    [B, n_phases])`` int32; ``n_phases`` is 0 for statistical traffic."""
+    batch, cycles, p_pes = inj_s.shape
     lp1 = geom.route.shape[0]
-    state = initial_state(batch, lp1 - 1, geom.depth, inj_s.device)
+    n_phases = 0 if trace is None else trace[0].shape[1]
+    state = initial_state(batch, lp1 - 1, geom.depth, inj_s.device,
+                          n_pes=p_pes, n_phases=n_phases)
     idx = index_tables(geom, geom.depth)
     passes = torch.zeros(batch, dtype=torch.int32, device=inj_s.device)
     for c in range(cycles):
-        state, p = cycle_step(geom, state, c, inj_s[:, c], dst_s[:, c],
-                              warmup=warmup,
-                              starvation_limit=starvation_limit,
-                              arb_iters=arb_iters, diagnostics=diagnostics,
-                              idx=idx)
+        state, p = cycle_step(
+            geom, state, c, inj_s[:, c], dst_s[:, c],
+            None if faults is None else fault_u[:, c], warmup=warmup,
+            starvation_limit=starvation_limit, arb_iters=arb_iters,
+            trace=trace, faults=faults, strict_barrier=strict_barrier,
+            watchdog=watchdog, diagnostics=diagnostics, idx=idx)
         passes += p
-    return state[1], state[3], state[4], passes
+    ph_done = (state[8] if trace is not None else torch.zeros(
+        (batch, 0), dtype=torch.int32, device=inj_s.device))
+    return state[1], state[3], state[4], passes, ph_done
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +436,13 @@ def load_library() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         lib.noc_step_launch.restype = ctypes.c_int
-        lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 17
-                                        + [ctypes.c_int] * 14
+        lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 25
+                                        + [ctypes.c_int] * 18
                                         + [ctypes.c_void_p])
         lib.noc_step_error_string.restype = ctypes.c_char_p
         lib.noc_step_error_string.argtypes = [ctypes.c_int]
         lib.noc_step_workspace_words.restype = ctypes.c_longlong
-        lib.noc_step_workspace_words.argtypes = [ctypes.c_int] * 3
+        lib.noc_step_workspace_words.argtypes = [ctypes.c_int] * 4
         _LIB = lib
         return lib
 
@@ -326,9 +452,23 @@ _GEOM_FIELDS = {"route": torch.int16, "kind": torch.int32,
                 "phys": torch.int32, "is_sink": torch.bool,
                 "pe_src_link": torch.int32, "inj_pe": torch.int32,
                 "cand": torch.int32, "intab": torch.int32}
+# Dynamic shared memory the kernel may take for its fault entries and
+# phase tables without opting in to more (4 int32 words per entry, 2 per
+# phase).
+SHARED_LIMIT_BYTES = 48 * 1024
 
 
-def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor) -> None:
+def _check_tensor(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(
+            f"{name} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor,
+                  trace=None, faults=None, fault_u=None) -> None:
     dev = inj_s.device
     lp1, p_pes = geom.route.shape
     for name, dtype in _GEOM_FIELDS.items():
@@ -353,41 +493,76 @@ def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor) -> None:
                              f"({n},), got {tuple(getattr(geom, name).shape)}")
     if geom.intab.shape[0] != lp1 or geom.cand.dim() != 2:
         raise ValueError("cand must be [NP1, Fc] and intab [L+1, Fi]")
+    batch, cycles = inj_s.shape[:2]
+    n_phases = n_faults = 0
+    if trace is not None:
+        n_phases = trace[0].shape[1] if trace[0].dim() == 3 else 0
+        if n_phases < 1:
+            raise ValueError("trace tables must be [B, n_phases >= 1, P]")
+        for name, t in zip(("ph_dst", "ph_flits"), trace[:2]):
+            _check_tensor(name, t, torch.int32, (batch, n_phases, p_pes),
+                          dev)
+        _check_tensor("ph_total", trace[2], torch.int32, (batch, n_phases),
+                      dev)
+    if faults is not None:
+        n_faults = faults[0].shape[1] if faults[0].dim() == 2 else 0
+        if n_faults < 1 or fault_u is None:
+            raise ValueError("faults need [B, F >= 1] entries and the "
+                             "[B, cycles, F] fault_u stream")
+        for name, t, dtype in zip(("fault links", "fault drop_p",
+                                   "fault onset"), faults,
+                                  (torch.int32, torch.float32, torch.int32)):
+            _check_tensor(name, t, dtype, (batch, n_faults), dev)
+        _check_tensor("fault_u", fault_u, torch.float32,
+                      (batch, cycles, n_faults), dev)
+    shared = 4 * (4 * n_faults + 2 * n_phases)
+    if shared > SHARED_LIMIT_BYTES:
+        raise ValueError(
+            f"{n_faults} fault entries and {n_phases} trace phases need "
+            f"{shared} bytes of shared memory, over the kernel's "
+            f"{SHARED_LIMIT_BYTES}")
 
 
 def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
               warmup: int, starvation_limit: int, arb_iters: int,
+              trace=None, faults=None, fault_u: torch.Tensor | None = None,
+              strict_barrier: bool = False, watchdog: int = 0,
               diagnostics: bool = False):
     """Run every cycle of a batch of points as one kernel launch.
 
-    Same contract as ``run_plain``.  CUDA tensors go to the CUDA kernel
-    (one thread block per point), launched on the current stream; CPU
-    tensors run ``run_plain``.  The kernel relies on each PE's inject
-    queue being the one row whose ``inj_pe`` names that PE, which
-    ``core.sim`` checks when it builds a geometry.
+    Same contract as ``run_plain``, on CUDA tensors only: the kernel (one
+    thread block per point) is launched on the current stream.  Trace
+    replay and faults pick the kernel's compile-time modes.  The kernel
+    relies on each PE's inject queue being the one row whose ``inj_pe``
+    names that PE, which ``core.sim`` checks when it builds a geometry.
     """
     global launches
     dev = inj_s.device
-    if dev.type == "cpu":
-        return run_plain(geom, inj_s, dst_s, warmup=warmup,
-                         starvation_limit=starvation_limit,
-                         arb_iters=arb_iters, diagnostics=diagnostics)
     if dev.type != "cuda":
-        raise ValueError(f"run_fused takes CPU or CUDA tensors, got {dev}")
-    _check_inputs(geom, inj_s, dst_s)
+        raise ValueError(
+            f"run_fused launches the CUDA kernel and takes CUDA tensors, "
+            f"got {dev}; run_plain runs the plain twin on any device")
+    _check_inputs(geom, inj_s, dst_s, trace, faults, fault_u)
     batch, cycles, p_pes = inj_s.shape
     lp1 = geom.route.shape[0]
     np1, fc = geom.cand.shape
     fi = geom.intab.shape[1]
     depth = geom.depth
+    n_phases = 0 if trace is None else trace[0].shape[1]
+    n_faults = 0 if faults is None else faults[0].shape[1]
     lib = load_library()
-    words = lib.noc_step_workspace_words(lp1, np1, depth)
-    work = torch.empty((batch, words), dtype=torch.int32, device=dev)
-    q_len = torch.empty((batch, lp1), dtype=torch.int32, device=dev)
-    m_scal = torch.empty((batch, N_SCALARS), dtype=torch.int32, device=dev)
-    m_kind = torch.empty((batch, N_KIND_ROWS, 8), dtype=torch.int32,
-                         device=dev)
-    passes = torch.empty((batch,), dtype=torch.int32, device=dev)
+    words = lib.noc_step_workspace_words(lp1, np1, depth, p_pes)
+    i32 = dict(dtype=torch.int32, device=dev)
+    work = torch.empty((batch, words), **i32)
+    q_len = torch.empty((batch, lp1), **i32)
+    m_scal = torch.empty((batch, N_SCALARS), **i32)
+    m_kind = torch.empty((batch, N_KIND_ROWS, 8), **i32)
+    passes = torch.empty((batch,), **i32)
+    ph_done = torch.empty((batch, n_phases), **i32)
+    ph_ptrs = (0, 0, 0) if trace is None else tuple(
+        t.data_ptr() for t in trace)
+    f_ptrs = (0, 0, 0, 0) if faults is None else (
+        fault_u.data_ptr(), *(t.data_ptr() for t in faults))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.noc_step_launch(
         inj_s.data_ptr(), dst_s.data_ptr(), geom.route.data_ptr(),
@@ -396,12 +571,15 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
         geom.pe_src_link.data_ptr(), geom.inj_pe.data_ptr(),
         geom.cand.data_ptr(), geom.intab.data_ptr(), work.data_ptr(),
         q_len.data_ptr(), m_scal.data_ptr(), m_kind.data_ptr(),
-        passes.data_ptr(),
+        passes.data_ptr(), *ph_ptrs, ph_done.data_ptr(), *f_ptrs,
         batch, lp1, p_pes, np1, fc, fi, depth, cycles, warmup,
         starvation_limit, arb_iters, 1 if diagnostics else 0,
-        score_pow2(lp1), THREADS, stream)
+        score_pow2(lp1), THREADS, n_phases, 1 if strict_barrier else 0,
+        watchdog, n_faults, stream)
     if err:
         raise RuntimeError("noc_step kernel launch failed: "
                            + lib.noc_step_error_string(err).decode())
     launches += 1
-    return q_len, m_scal, m_kind, passes
+    for mode in launch_modes(trace, faults):
+        mode_launches[mode] += 1
+    return q_len, m_scal, m_kind, passes, ph_done

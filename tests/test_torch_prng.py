@@ -108,8 +108,9 @@ def test_draw_streams_match_reference(pattern, loc):
                                 locality_block=loc[1]))
             for rate, seed in ((0.3, 3), (0.625, 11))]
     points = [t_sim.make_point(c, n) for c in cfgs]
-    inj, dst = t_sim.draw_streams(points, n, cycles, "cpu")
+    inj, dst, fault_u = t_sim.draw_streams(points, n, cycles, "cpu")
     assert inj.dtype == torch.bool and dst.dtype == torch.int16
+    assert fault_u is None  # healthy points: no fault draws
     for b, pt in enumerate(points):
         r_inj, r_dst = _reference_streams(pt, n, cycles)
         assert np.array_equal(inj[b].numpy(), r_inj)

@@ -135,8 +135,11 @@ def test_config_validation():
             == t_sim.SimConfig(backend="torch"))
     ts = t_spec.TopologySpec("ring_mesh", 16)
     flt = t_faults.sample_faults(ts.build(), n_dead_links=1, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_sim.SimConfig(backend="torch", device="cpu", faults=flt)
+    # Runtime faults are ported: the config builds and keeps its faults.
+    assert t_sim.SimConfig(backend="torch", device="cpu",
+                           faults=flt).faults == flt
+    with pytest.raises(TypeError, match="FaultSpec"):
+        t_sim.SimConfig(backend="torch", device="cpu", faults=(1, 2))
     with pytest.raises(ValueError, match="trace-replay"):
         t_sim.SimConfig(backend="torch", device="cpu", watchdog=5)
     with pytest.raises(ValueError, match="warmup"):
