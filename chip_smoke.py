@@ -41,11 +41,14 @@ phases; any failure raises and exits non-zero.
    phases 5 and 6 that runs them.
 
 Launch counts are zeroed just before each of phases 3, 5 and 6 and read
-just after, by mode.  The line before the last is the kernels' JSON
+just after, by mode.  Phases 5 and 6 split their host wall clock into its
+stages (topology builds, device geometry, streams and operands, the
+kernel, the reachability walk, the rest).  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -103,6 +106,51 @@ def as_reference(r) -> dict:
     d = fields(r)
     d["phase_done"] = list(d["phase_done"])
     return d
+
+
+@contextlib.contextmanager
+def host_clock(targets):
+    """Host seconds spent inside each of ``targets`` ((owner, attribute)
+    pairs) while the block runs: each is wrapped for the block's length,
+    and the device is synchronized before a call's clock stops, so a call
+    that launches device work is charged for it."""
+    spent, saved = {}, []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        spent[name] = 0.0
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                spent[_name] += time.perf_counter() - t
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def host_split(wall: float, spent: dict) -> str:
+    parts = [f"{k} {v:.3f} s" for k, v in spent.items()]
+    return (f"{wall:.3f} s host wall clock = " + ", ".join(parts)
+            + f", rest {wall - sum(spent.values()):.3f} s")
+
+
+def clocked_targets():
+    """The host-side stages of a run that ``host_clock`` times apart:
+    topology builds, device geometry, random streams and operands, the
+    kernel (run_fused, synchronized) and the reachability walk."""
+    from repro_torch.core import sim
+    from repro_torch.core.spec import TopologySpec
+    from repro_torch.kernels import noc_step
+    return ((TopologySpec, "build"), (sim, "build_geometry"),
+            (sim, "batch_operands"), (noc_step, "run_fused"),
+            (sim, "_fault_reachability"))
 
 
 # ---------------------------------------------------------------------------
@@ -443,14 +491,14 @@ def phase_trace(ref) -> tuple[int, float, list]:
                  for row in json.load(f)["tables"]["trace_replay"]["rows"]}
     sizes = ref["recipes"]["trace_replay"]["sizes"]
     noc_step.reset_launches()
-    t0 = time.perf_counter()
-    tags, reports = trace_grid(ref, sizes, "cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with host_clock(clocked_targets()) as spent:
+        t0 = time.perf_counter()
+        tags, reports = trace_grid(ref, sizes, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = noc_step.mode_launches[noc_step.TRACE]
-    say(5, f"run_grid over {len(reports)} trace points: {launches} "
-           f"noc_step[trace] launches ({noc_step.launches} in all), "
-           f"{wall:.3f} s host wall clock [{CARD}]")
+    say(5, f"run_grid over {len(reports)} trace points: launches by mode "
+           f"{noc_step.mode_launches}, {host_split(wall, spent)} [{CARD}]")
     assert launches > 0, "the trace path never launched the kernel's mode"
     for tag, rep in zip(tags, reports):
         assert as_reference(rep.sim) == {
@@ -552,14 +600,14 @@ def phase_faults(ref) -> tuple[int, float, list]:
 
     tags, exps = fault_grid(ref, (256, 1024), "cuda")
     noc_step.reset_launches()
-    t0 = time.perf_counter()
-    reports = run_experiments(exps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with host_clock(clocked_targets()) as spent:
+        t0 = time.perf_counter()
+        reports = run_experiments(exps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = noc_step.mode_launches[noc_step.FAULTS]
-    say(6, f"run_experiments over {len(exps)} points: {launches} "
-           f"noc_step[faults] launches ({noc_step.launches} in all), "
-           f"{wall:.3f} s host wall clock [{CARD}]")
+    say(6, f"run_experiments over {len(exps)} points: launches by mode "
+           f"{noc_step.mode_launches}, {host_split(wall, spent)} [{CARD}]")
     assert launches > 0, "the fault path never launched the kernel's mode"
     check(tags, reports)
     for tag, rep in zip(tags, reports):

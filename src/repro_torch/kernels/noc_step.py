@@ -50,17 +50,14 @@ N_SCALARS = 8
 KIND_WINS, KIND_STALLS, KIND_QLEN = range(3)
 N_KIND_ROWS = 3
 
-# Launches of the CUDA kernel since the last ``reset_launches()``: in all,
-# and by mode.  A launch with both trace replay and faults counts under
-# both of those modes.
+# Launches of the CUDA kernel since the last ``reset_launches()``, by mode.
+# A launch with both trace replay and faults counts under both of those
+# modes.
 STATISTICAL, TRACE, FAULTS = "noc_step", "noc_step[trace]", "noc_step[faults]"
-launches = 0
 mode_launches = {STATISTICAL: 0, TRACE: 0, FAULTS: 0}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
     for k in mode_launches:
         mode_launches[k] = 0
 
@@ -536,7 +533,6 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
     relies on each PE's inject queue being the one row whose ``inj_pe``
     names that PE, which ``core.sim`` checks when it builds a geometry.
     """
-    global launches
     dev = inj_s.device
     if dev.type != "cuda":
         raise ValueError(
@@ -579,7 +575,6 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
     if err:
         raise RuntimeError("noc_step kernel launch failed: "
                            + lib.noc_step_error_string(err).decode())
-    launches += 1
     for mode in launch_modes(trace, faults):
         mode_launches[mode] += 1
     return q_len, m_scal, m_kind, passes, ph_done

@@ -152,7 +152,7 @@ def test_conservation_under_faults_matches_reference(family, style):
     destroy flits only through ``dropped`` — and the port equals the
     reference field for field."""
     flt = _pair(_STYLES[style], family)
-    r = _both(family, flt, cycles=400, warmup=0, inj_rate=0.3, seed=2)
+    r = _both(family, flt, cycles=200, warmup=0, inj_rate=0.3, seed=2)
     assert r.lost == 0
     assert r.offered == r.delivered + r.dropped + r.in_flight
     assert r.delivered > 0 and r.reachability <= 1.0
@@ -174,7 +174,7 @@ def test_onset_gates_fault_activation():
     def run(p, onset):
         return _both("ring_mesh", (mk(r_faults, p, onset),
                                    mk(t_faults, p, onset)),
-                     cycles=300, warmup=0, inj_rate=0.3, seed=1)
+                     cycles=200, warmup=0, inj_rate=0.3, seed=1)
 
     late_a, late_b = run(0.5, 10 ** 6), run(0.9, 10 ** 6)
     assert late_a.row() == late_b.row()
@@ -217,7 +217,7 @@ def test_repair_restores_delivery_as_in_the_reference():
     with the same numbers in both packages."""
     fr, ft = _pair(lambda m, t: m.sample_faults(t, n_dead_links=3, seed=0),
                    "flat_mesh")
-    kw = dict(cycles=500, warmup=0, inj_rate=0.1, seed=2)
+    kw = dict(cycles=200, warmup=0, inj_rate=0.1, seed=2)
     faulted = _both("flat_mesh", (fr, ft), **kw)
     rr = r_faults.suggest_repair_morph(r_spec.TopologySpec("flat_mesh", 16),
                                        fr).faults
@@ -274,13 +274,13 @@ def test_watchdog_matches_reference_on_a_healthy_trace():
                        t_faults.FaultSpec(dead_routers=(0,)))):
         rx = r_sim.simulate(
             r_spec.TopologySpec("ring_mesh", 16).build(),
-            r_sim.SimConfig(cycles=600, warmup=0, inj_rate=1.0,
+            r_sim.SimConfig(cycles=200, warmup=0, inj_rate=1.0,
                             pattern=r_tr.from_records(16, recs),
                             strict_barrier=True, watchdog=48,
                             faults=flt and flt[0]))
         rt = t_sim.simulate(
             t_spec.TopologySpec("ring_mesh", 16).build(),
-            t_sim.SimConfig(cycles=600, warmup=0, inj_rate=1.0,
+            t_sim.SimConfig(cycles=200, warmup=0, inj_rate=1.0,
                             pattern=t_tr.from_records(16, recs),
                             strict_barrier=True, watchdog=48,
                             faults=flt and flt[1], **CPU))
@@ -298,7 +298,7 @@ def test_fault_grid_batches_and_matches_per_point_and_reference():
            dict(n_transient=2, seed=2))
     rf = (None,) + tuple(r_faults.sample_faults(rt, **k) for k in kws)
     tf = (None,) + tuple(t_faults.sample_faults(tt, **k) for k in kws)
-    grid = dict(inj_rates=(0.2, 0.4), seeds=(0,), cycles=300, warmup=0)
+    grid = dict(inj_rates=(0.2, 0.4), seeds=(0,), cycles=200, warmup=0)
     rcfgs = r_sweep.grid(faults=rf, **grid)
     tcfgs = t_sweep.grid(faults=tf, **CPU, **grid)
     assert len(t_sweep._grouped(tt, tcfgs)) == 2
@@ -312,10 +312,10 @@ def test_fault_grid_batches_and_matches_per_point_and_reference():
 def test_experiment_fault_axis_and_report_json_both_ways():
     fr, ft = _pair(lambda m, t: m.sample_faults(t, n_dead_links=2, seed=0))
     rr = r_exp.Experiment(topology=r_spec.TopologySpec("ring_mesh", 16),
-                          budget=r_exp.Budget(cycles=300, warmup=0),
+                          budget=r_exp.Budget(cycles=200, warmup=0),
                           inj_rate=0.2).run_grid(faults=(None, fr))
     tt = t_exp.Experiment(topology=t_spec.TopologySpec("ring_mesh", 16),
-                          budget=t_exp.Budget(cycles=300, warmup=0, **CPU),
+                          budget=t_exp.Budget(cycles=200, warmup=0, **CPU),
                           inj_rate=0.2).run_grid(faults=(None, ft))
     assert tt[0].reachability == 1.0 > tt[1].reachability
     assert tt[1].latency_inflation(tt[0]) == rr[1].latency_inflation(rr[0])

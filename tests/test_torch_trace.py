@@ -160,7 +160,7 @@ def test_trace_kind_resolves_lazily_in_a_fresh_interpreter():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("family", ["ring_mesh", "flat_mesh"])
 def test_phase_gating_matches_reference(family):
-    r = _both(family, TWO_PHASE, cycles=400, warmup=0, inj_rate=1.0)
+    r = _both(family, TWO_PHASE, cycles=200, warmup=0, inj_rate=1.0)
     assert r.trace_completed
     d0, d1 = r.phase_done
     assert 0 < d0 < d1
@@ -173,8 +173,8 @@ def test_phase_gating_matches_reference(family):
 
 @pytest.mark.parametrize("family", ["ring_mesh", "flat_mesh"])
 def test_throttled_injection_matches_reference(family):
-    full = _both(family, TWO_PHASE, cycles=400, warmup=0, inj_rate=1.0)
-    slow = _both(family, TWO_PHASE, cycles=400, warmup=0, inj_rate=0.3,
+    full = _both(family, TWO_PHASE, cycles=200, warmup=0, inj_rate=1.0)
+    slow = _both(family, TWO_PHASE, cycles=200, warmup=0, inj_rate=0.3,
                  seed=3)
     assert slow.trace_completed
     assert slow.completion_cycles >= full.completion_cycles
@@ -194,7 +194,7 @@ def test_extracted_schedule_matches_reference(family):
     """A real extracted schedule (the flat DP all-reduce) replays
     identically."""
     spec = r_tr.dist_to_trace("flat", P16, 1 << 16, normalize_flits=4)
-    r = _both(family, [list(ph) for ph in spec.phases], cycles=500,
+    r = _both(family, [list(ph) for ph in spec.phases], cycles=400,
               warmup=0, inj_rate=1.0)
     assert r.trace_completed and r.n_phases == spec.n_phases
 
@@ -203,9 +203,9 @@ def test_grid_batches_trace_with_statistical_points():
     """Mixed trace + statistical configs on one topology sweep in one call
     (two batches: the phase count is a batch shape), equal to per-point
     runs and to the reference's sweep."""
-    kw = [dict(cycles=400, warmup=0, inj_rate=1.0, seed=0, trace=True),
-          dict(cycles=400, warmup=0, inj_rate=0.25, seed=0),
-          dict(cycles=400, warmup=0, inj_rate=0.6, seed=2, trace=True)]
+    kw = [dict(cycles=200, warmup=0, inj_rate=1.0, seed=0, trace=True),
+          dict(cycles=200, warmup=0, inj_rate=0.25, seed=0),
+          dict(cycles=200, warmup=0, inj_rate=0.6, seed=2, trace=True)]
 
     def cfgs(mod, pkg_tr, **extra):
         return [mod.SimConfig(
@@ -232,12 +232,12 @@ def test_experiment_grid_and_report_json_both_ways():
     rr = r_exp.Experiment(
         topology=r_spec.TopologySpec("ring_mesh", P16),
         traffic=rtr["flat"], inj_rate=1.0,
-        budget=r_exp.Budget(cycles=600, warmup=0)).run_grid(
+        budget=r_exp.Budget(cycles=400, warmup=0)).run_grid(
             traffics=tuple(rtr.values()))
     tt = t_exp.Experiment(
         topology=t_spec.TopologySpec("ring_mesh", P16),
         traffic=ttr["flat"], inj_rate=1.0,
-        budget=t_exp.Budget(cycles=600, warmup=0, backend="torch",
+        budget=t_exp.Budget(cycles=400, warmup=0, backend="torch",
                             device="cpu")).run_grid(
             traffics=tuple(ttr.values()))
     for rrep, trep in zip(rr, tt):
