@@ -1,14 +1,16 @@
-"""Drive the PyTorch/CUDA port of the NoC simulator on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the NoC simulator and the model zoo's
+Zamba2-1.2B path) on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Runs from a checkout of the repository, needs one CUDA device and nvcc,
 and imports nothing of jax or of the JAX reference package.  It builds the
-port's CUDA kernel from ``src/repro_torch/kernels/csrc`` and runs seven
-phases; any failure raises and exits non-zero.
+port's three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+each, started together) and runs eleven phases; any failure raises and
+exits non-zero.
 
-1. Device: the card's name and power limit (``nvidia-smi``), the kernel's
-   build time and its register report.
+1. Device: the card's name and power limit (``nvidia-smi``), the kernels'
+   build time and their register reports.
 2. Kernel vs plain twin on the card, bit for bit: ``SimResult`` and
    ``kind_diagnostics`` over the 16-PE matrix of both families, 64 PEs
    under the paper's locality, a morph overlay, a repaired fabric, one
@@ -39,23 +41,48 @@ phases; any failure raises and exits non-zero.
    64 PEs, a transient fault with a late onset included.
 7. Times of the trace and fault modes, as in phase 4, on every launch of
    phases 5 and 6 that runs them.
+8. ``flash_attention`` and ``ssd_scan`` against their plain versions on
+   the card: the CPU tests' matrices in float32 and bfloat16, then the
+   full-width shapes in bfloat16 (Zamba2 scoring, h2o-danube's window and
+   offset, width 128; the SSD at Zamba2 scoring), each timed with CUDA
+   events beside its plain version, ``scaled_dot_product_attention`` for
+   attention, and its bound.
+9. The scoring path at full width: ``zamba2-1.2b`` (38 layers, d_model
+   2048) from ``init_params`` on the card scores 2 x 4096 tokens through
+   ``forward`` -> ``unembed`` and ``loss_fn``; 38 ``ssd_scan`` and 6
+   ``flash_attention`` launches per forward; logits and loss held against
+   the plain route (``attn_impl="torch"``) on the card; host and device
+   time per forward.
+10. The JAX anchor: the same model at full width with its depth cut to one
+   6-layer unit, on the numpy weights of
+   ``tests/data/torch_port_model_reference.json``'s seed, held to that
+   file's loss and top-10 logits (the JAX package's, ``attn_impl="xla"``).
+11. Serving at full width: ``ServeEngine`` on phase 9's model, 4 slots,
+   ``max_seq`` 512, 6 requests with 64-256-token prompts and 16-32 new
+   tokens; every request completes, no kernel launches (prefill and
+   decode take the plain routes, as in the reference); tokens per second.
 
-Launch counts are zeroed just before each of phases 3, 5 and 6 and read
-just after, by mode.  Phases 5 and 6 split their host wall clock into its
-stages (topology builds, device geometry, streams and operands, the
-kernel, the reachability walk, the rest).  The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before each of phases 3, 5, 6, 9 and 11 and
+read just after (by mode for noc_step).  Phases 5 and 6 split their host
+wall clock into its stages (topology builds, device geometry, streams and
+operands, the kernel, the reachability walk, the rest), phase 9 its
+forward's into the two kernels and the rest.  The line before the last is
+the kernels' JSON record; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -63,12 +90,22 @@ REFERENCE = os.path.join(ROOT, "tests", "data", "torch_port_reference.json")
 TRACE_FAULT_REFERENCE = os.path.join(
     ROOT, "tests", "data", "torch_port_trace_fault_reference.json")
 BENCH = os.path.join(ROOT, "BENCH_noc.json")
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/noc_step.cu"
+MODEL_REFERENCE = os.path.join(ROOT, "tests", "data",
+                               "torch_port_model_reference.json")
+SOURCES = {
+    "noc_step": "src/repro_torch/kernels/csrc/noc_step.cu",
+    "noc_step[trace]": "src/repro_torch/kernels/csrc/noc_step.cu",
+    "noc_step[faults]": "src/repro_torch/kernels/csrc/noc_step.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+}
 REPLACES = {
     "noc_step": "src/repro/kernels/noc_step.py:371",
     "noc_step[trace]":
         "src/repro/kernels/noc_step.py:137-148,294-304,329-365,538-552",
     "noc_step[faults]": "src/repro/kernels/noc_step.py:232-241,506-525",
+    "flash_attention": "src/repro/kernels/flash_attention.py:29",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:32",
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bound: device
@@ -76,6 +113,9 @@ REPLACES = {
 # cores (the data sheet's float32 rate; the kernel's work is int32 ALU).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# The dense bf16 tensor-core peak: the bound of the model zoo's kernels,
+# whose inputs on the main path are bfloat16.
+BF16_OPS_PER_S = 989e12
 
 CARD = ""  # "name, power limit" as nvidia-smi reports them
 
@@ -156,7 +196,7 @@ def clocked_targets():
 # ---------------------------------------------------------------------------
 def phase_device():
     global CARD
-    from repro_torch.kernels import noc_step
+    from repro_torch.kernels import flash_attention, noc_step, ssd_scan
     CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -165,13 +205,19 @@ def phase_device():
     say(1, f"torch {torch.__version__} cuda {torch.version.cuda} "
            f"device {torch.cuda.get_device_name(0)} "
            f"count {torch.cuda.device_count()}")
+    # One nvcc per source, all started together.
     t0 = time.perf_counter()
-    noc_step.load_library()
-    say(1, f"noc_step kernel built and loaded in "
-           f"{time.perf_counter() - t0:.3f} s")
-    for line in noc_step.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(1, "ptxas: " + line.strip())
+    mods = (noc_step, flash_attention, ssd_scan)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        futures = [pool.submit(m.load_library) for m in mods]
+        for f in futures:
+            f.result()
+    say(1, f"noc_step, flash_attention and ssd_scan kernels built and "
+           f"loaded in {time.perf_counter() - t0:.3f} s")
+    for m in mods:
+        for line in m.LIBRARY.log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(1, f"ptxas [{m.LIBRARY.name}]: " + line.strip())
 
 
 def phase_parity():
@@ -646,6 +692,516 @@ def phase_faults(ref) -> tuple[int, float, list]:
     return launches, err, exps
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-11: the model zoo's path on zamba2-1.2b and its two kernels.
+# ---------------------------------------------------------------------------
+DEVICE = "cuda"
+ARCH = "zamba2-1.2b"
+# The CPU tests' matrices (tests/test_torch_attention_ssd.py, after the
+# reference's tests/test_kernels.py): attention (B, Hq, Hkv, Sq, Skv, D,
+# causal, window, block_q, block_k) and SSD (B, H, G, S, P, N, chunk).
+ATTN_CASES = [
+    (1, 2, 2, 128, 128, 64, True, None, 64, 64),
+    (2, 4, 2, 128, 128, 64, True, None, 64, 64),
+    (1, 8, 1, 128, 128, 32, True, None, 32, 64),
+    (1, 2, 2, 128, 128, 64, False, None, 64, 64),
+    (1, 4, 4, 256, 256, 64, True, 64, 64, 64),
+    (1, 4, 2, 256, 256, 64, True, 100, 64, 64),
+    (2, 4, 2, 1, 256, 64, True, None, 1, 64),
+    (1, 4, 4, 64, 256, 64, True, None, 32, 64),
+    (1, 2, 2, 128, 128, 128, True, None, 128, 128),
+]
+SSD_CASES = [
+    (1, 2, 1, 64, 32, 16, 16),
+    (2, 4, 2, 128, 32, 16, 32),
+    (1, 4, 1, 128, 64, 32, 64),
+    (1, 8, 8, 64, 16, 16, 16),
+    (1, 2, 1, 128, 32, 16, 128),
+]
+# Full-width shapes.  The first of each is the main path's: Zamba2 scoring
+# a batch of 2 x 4096 tokens (32 MHA heads of width 64; 64 SSD heads of
+# width 64, d_state 64, one group, chunk 128).  Then h2o-danube-1.8b's
+# GQA 32/8, width 80, a 4096 window, queries at the tail of an 8192 kv;
+# and the Qwen width 128 with GQA 28/4.
+FLASH_SHAPES = [
+    ("zamba2 scoring", (2, 32, 32, 4096, 4096, 64, True, None)),
+    ("h2o-danube window 4096, offset 4096", (1, 32, 8, 4096, 8192, 80, True,
+                                             4096)),
+    ("qwen d128", (1, 28, 4, 2048, 2048, 128, True, None)),
+]
+SSD_SHAPES = [("zamba2 scoring", (2, 64, 1, 4096, 64, 64, 128))]
+SCORE_BATCH, SCORE_SEQ = 2, 4096
+SERVE = dict(n_slots=4, max_seq=512, n_requests=6, prompt=(64, 256),
+             new_tokens=(16, 32), seed=11)
+# Kernel vs plain version, |got - want| <= atol + rtol * |want| elementwise
+# (atol = rtol): attention 2e-5 in float32 (summation order; a softmax
+# mean has no cancellation); the SSD 3e-4 in float32 (another float32
+# cumsum and product order, carried through exp, on outputs that are sums
+# of terms far larger than themselves; the reference's own tolerance
+# between SSD algorithms); both 2e-2 in bfloat16 (outputs rounded to
+# bfloat16 on each side).
+TOL = {("flash_attention", torch.float32): 2e-5,
+       ("flash_attention", torch.bfloat16): 2e-2,
+       ("ssd_scan", torch.float32): 3e-4,
+       ("ssd_scan", torch.bfloat16): 2e-2}
+# The full-width scoring path, kernels vs the plain route.  They differ
+# only where a kernel and its plain version sum in another order and, in
+# bfloat16, round their outputs to another neighbour; 38 layers of random
+# weights carry those one-ulp differences into every logit.  In bfloat16
+# as shipped: the logits' rms difference within 5 % of their rms, the loss
+# within 0.02 (the first full-width run measured 3.2 % and 3.7e-4, and a
+# largest single difference of 0.17 among 262 million logits).  With
+# float32 compute (COMPUTE_DTYPE set to float32 for the run), where the
+# kernels agree with their plain versions to 2e-5 / 3e-4: the logits
+# elementwise within 1e-3 + 1e-3 * |plain|, the loss within 1e-3.
+SCORE_RMS_TOL, SCORE_LOSS_TOL = 0.05, 0.02
+SCORE_F32_TOL = 1e-3
+# Against the JAX reference (tests/data/torch_port_model_reference.json):
+# the top-10 logits within 0.125 (four bfloat16 ulps at magnitude 4; the
+# plain route on a CPU came within 0.047), loss within 0.01 (CPU: 6e-4).
+ANCHOR_LOGIT_TOL, ANCHOR_LOSS_TOL = 0.125, 0.01
+
+
+def logits_close(label: str, got, want) -> str:
+    """Hold logits to the plain route's: ``SCORE_F32_TOL`` elementwise in
+    float32, ``SCORE_RMS_TOL`` on the rms difference in bfloat16.  Returns
+    a summary of the differences."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    rel = float(diff.square().mean().sqrt() / w.square().mean().sqrt())
+    argmax = float((g.argmax(-1) != w.argmax(-1)).float().mean())
+    msg = (f"max |d logits| {float(diff.max()):.4g}, rms difference "
+           f"{rel:.2e} of the rms, argmax differs at {argmax:.2%} of "
+           f"{g[..., 0].numel()} positions")
+    if got.dtype == torch.float32:
+        bad = int((diff > SCORE_F32_TOL * (1 + w.abs())).sum())
+        assert bad == 0, (label, msg, bad)
+    else:
+        assert rel <= SCORE_RMS_TOL, (label, msg)
+    return msg
+
+
+@contextlib.contextmanager
+def device_clock(targets):
+    """Device ms spent inside each of ``targets`` ((owner, attribute)
+    pairs) while the block runs: CUDA events recorded on the stream just
+    before and after each call, read after the block."""
+    events, saved = {}, []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        events[name] = []
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = _fn(*a, **k)
+            stop.record()
+            events[_name].append((start, stop))
+            return out
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    spent: dict = {}
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    torch.cuda.synchronize()
+    for name, pairs in events.items():
+        spent[name] = sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def model_config():
+    from repro_torch import configs
+    return configs.get(ARCH)
+
+
+def check_close(name: str, label: str, got, want) -> float:
+    """Hold a kernel's output to its plain version's; returns the largest
+    absolute difference."""
+    t = TOL[(name, got.dtype)]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bad = diff > t + t * w.abs()
+    assert got.shape == want.shape and got.dtype == want.dtype, label
+    assert torch.isfinite(g).all(), (name, label, "non-finite output")
+    assert not bool(bad.any()), (name, label, float(diff.max()),
+                                 int(bad.sum()))
+    return float(diff.max())
+
+
+def event_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``, CUDA events around ``reps`` calls
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave, queries at the kv tail."""
+    q_pos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
+    hi = torch.clamp(q_pos, max=skv - 1) if causal else \
+        torch.full((sq,), skv - 1)
+    lo = torch.clamp(q_pos - window + 1, min=0) if window else \
+        torch.zeros(sq, dtype=torch.int64)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Two products of 2*D operations per visible (query, key) pair and
+    head; q, k, v read and o written once."""
+    b, hq, hkv, sq, skv, d, causal, window = shape
+    ops = 4 * b * hq * d * visible_pairs(sq, skv, causal, window)
+    nbytes = itemsize * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+    return bound(ops, nbytes)
+
+
+def ssd_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Per chunk and head the four products: C.B^T and M @ X over the
+    lower triangle's L(L+1)/2 pairs, C @ state and the state update
+    B^T @ X; x, b, c read and y written once in ``itemsize``, dt and a in
+    float32."""
+    b, h, g, s, p, n, chunk = shape
+    tri = chunk * (chunk + 1) // 2
+    ops = b * h * (s // chunk) * 2 * (tri * n + tri * p + 2 * chunk * n * p)
+    nbytes = itemsize * (2 * b * h * s * p + 2 * b * g * s * n) \
+        + 4 * (b * h * s + h)
+    return bound(ops, nbytes)
+
+
+def attn_operands(shape, dtype, gen):
+    b, hq, hkv, sq, skv, d = shape[:6]
+    return tuple(torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+                 for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                           (b, hkv, skv, d)))
+
+
+def ssd_operands(shape, dtype, gen):
+    """x, b, c standard normal in ``dtype``; dt = softplus(N(0,1) - 1) and
+    a = -exp(N(0,1)/2) in float32, as the model passes them."""
+    b, h, g, s, p, n = shape[:6]
+
+    def rn(*sz):
+        return torch.randn(sz, generator=gen, device=DEVICE)
+    x = rn(b, h, s, p).to(dtype)
+    dt = torch.nn.functional.softplus(rn(b, h, s) - 1.0)
+    a = -torch.exp(rn(h) * 0.5)
+    return x, dt, a, rn(b, g, s, n).to(dtype), rn(b, g, s, n).to(dtype)
+
+
+def sdpa_ms(q, k, v, shape) -> float:
+    """One PyTorch call computing the same attention, timed as the
+    kernel's yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+    b, hq, hkv, sq, skv, d, causal, window = shape
+    if sq == skv and window is None:
+        kw = dict(is_causal=causal)
+    else:
+        q_pos = torch.arange(sq, device=DEVICE)[:, None] + (skv - sq)
+        k_pos = torch.arange(skv, device=DEVICE)[None, :]
+        mask = k_pos <= q_pos if causal else torch.ones_like(k_pos > 0)
+        if window:
+            mask = mask & (k_pos > q_pos - window)
+        kw = dict(attn_mask=mask)
+    return event_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=hq != hkv, **kw), reps=3)
+
+
+def phase_kernels() -> dict:
+    """Both kernels against their plain versions on the card: the CPU
+    tests' matrices in float32 and bfloat16, then the full-width shapes in
+    bfloat16, timed.  Returns the record fields of each kernel at its main
+    path shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    err = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ATTN_CASES:
+            causal, window, bq, bk = case[6:]
+            q, k, v = attn_operands(case, dtype, gen)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     block_q=bq, block_k=bk)
+            want = fa.plain(q, k, v, causal=causal, window=window)
+            err["flash_attention"] = max(err["flash_attention"], check_close(
+                "flash_attention", f"{case} {dtype}", got, want))
+        for case in SSD_CASES:
+            ops = ssd_operands(case, dtype, gen)
+            got = ss.ssd_scan(*ops, chunk=case[-1])
+            want = ss.plain(*ops, chunk=case[-1])
+            err["ssd_scan"] = max(err["ssd_scan"], check_close(
+                "ssd_scan", f"{case} {dtype}", got, want))
+        say(8, f"{dtype}: kernel == plain within tolerance over "
+               f"{len(ATTN_CASES)} attention and {len(SSD_CASES)} SSD cases "
+               f"(max |diff| so far: flash {err['flash_attention']:.3g}, "
+               f"ssd {err['ssd_scan']:.3g})")
+    bf16 = torch.bfloat16
+    out = {}
+    for i, (label, shape) in enumerate(FLASH_SHAPES):
+        causal, window = shape[6:]
+        q, k, v = attn_operands(shape, bf16, gen)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+        e = check_close("flash_attention", label, kernel(),
+                        fa.plain(q, k, v, causal=causal, window=window))
+        err["flash_attention"] = max(err["flash_attention"], e)
+        ms = event_ms(kernel, reps=5)
+        plain_ms = event_ms(lambda: fa.plain(q, k, v, causal=causal,
+                                             window=window), reps=1)
+        lib_ms = sdpa_ms(q, k, v, shape)
+        b_ms, by = flash_bound(shape, 2)
+        say(8, f"flash_attention {label} {shape[:6]} bf16: kernel "
+               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
+               f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
+               f"{b_ms:.4f} ms ({by}, {b_ms / ms:.1%} of it), max |diff| "
+               f"{e:.3g} [{CARD}]")
+        if i == 0:
+            out["flash_attention"] = dict(ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=by,
+                                          library_ms=lib_ms)
+        del q, k, v
+    for i, (label, shape) in enumerate(SSD_SHAPES):
+        ops = ssd_operands(shape, bf16, gen)
+        chunk = shape[-1]
+        e = check_close("ssd_scan", label, ss.ssd_scan(*ops, chunk=chunk),
+                        ss.plain(*ops, chunk=chunk))
+        err["ssd_scan"] = max(err["ssd_scan"], e)
+        ms = event_ms(lambda: ss.ssd_scan(*ops, chunk=chunk), reps=5)
+        plain_ms = event_ms(lambda: ss.plain(*ops, chunk=chunk), reps=1)
+        b_ms, by = ssd_bound(shape, 2)
+        say(8, f"ssd_scan {label} {shape} bf16: kernel {ms:.3f} ms, plain "
+               f"{plain_ms:.3f} ms, no single PyTorch call, bound "
+               f"{b_ms:.4f} ms ({by}, {b_ms / ms:.1%} of it), max |diff| "
+               f"{e:.3g} [{CARD}]")
+        if i == 0:
+            out["ssd_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=by, library_ms=None)
+    for name in out:
+        out[name]["err"] = err[name]
+    return out
+
+
+def timed_forward(cfg, params, tokens):
+    """forward -> unembed, synchronized: (logits, host s, device ms)."""
+    from repro_torch.models import model as M
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    start.record()
+    hidden, *_ = M.forward(cfg, params, tokens)
+    logits = M.unembed(cfg, params, hidden)
+    stop.record()
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0, start.elapsed_time(stop)
+
+
+def phase_scoring():
+    """The scoring path at full width: forward -> unembed and loss_fn
+    through the kernels, their launches counted, held against the plain
+    route on the card.  Returns (launches, config, parameters)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import model as M
+
+    cfg = model_config()
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in M.L.tree_leaves(params))
+    say(9, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+           f"{n_params} parameters (ModelConfig.param_count "
+           f"{cfg.param_count()}; float32, init_params on the card in "
+           f"{time.perf_counter() - t0:.3f} s)")
+    tokens = torch.randint(0, cfg.vocab, (SCORE_BATCH, SCORE_SEQ),
+                           generator=gen, device=DEVICE)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    n_ssd = sum(len(u) * r for u, r in cfg.stages)
+    n_attn = sum(u.count("hybrid") * r for u, r in cfg.stages)
+
+    fa.reset_launches()
+    ss.reset_launches()
+    logits, host_s, dev_ms = timed_forward(cfg, params, tokens)
+    per_forward = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+    loss, _ = M.loss_fn(cfg, params, batch)
+    launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+    say(9, f"launches per forward {per_forward}, over forward + loss_fn "
+           f"{launches}")
+    assert per_forward == {"flash_attention": n_attn, "ssd_scan": n_ssd}
+    assert launches == {"flash_attention": 2 * n_attn,
+                        "ssd_scan": 2 * n_ssd}
+    assert logits.shape == (SCORE_BATCH, SCORE_SEQ, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(loss))
+    say(9, f"forward -> unembed over {SCORE_BATCH} x {SCORE_SEQ} tokens: "
+           f"first call {host_s:.3f} s host, {dev_ms:.3f} ms device; loss "
+           f"{float(loss):.6f} (ln vocab {math.log(cfg.vocab):.6f})")
+    runs = [timed_forward(cfg, params, tokens)[1:] for _ in range(2)]
+    with device_clock(((fa, "flash_attention"),
+                       (ss, "ssd_scan"))) as spent:
+        _, _, split_ms = timed_forward(cfg, params, tokens)
+    say(9, f"forward -> unembed, warm: host {runs[0][0]:.3f} / "
+           f"{runs[1][0]:.3f} s, device {runs[0][1]:.3f} / {runs[1][1]:.3f}"
+           f" ms; a third: {split_ms:.3f} ms device = flash_attention "
+           f"{spent['flash_attention']:.3f} ms "
+           f"({per_forward['flash_attention']} calls), ssd_scan "
+           f"{spent['ssd_scan']:.3f} ms ({per_forward['ssd_scan']} calls), "
+           f"rest "
+           f"{split_ms - sum(spent.values()):.3f} ms (CUDA events around "
+           f"each wrapper call) [{CARD}]")
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+    plain_logits, plain_s, plain_dev = timed_forward(plain_cfg, params,
+                                                     tokens)
+    plain_loss, _ = M.loss_fn(plain_cfg, params, batch)
+    d_loss = abs(float(loss) - float(plain_loss))
+    say(9, f"plain route on the card: {plain_s:.3f} s host, "
+           f"{plain_dev:.3f} ms device [{CARD}]")
+    msg = logits_close("scoring", logits, plain_logits)
+    say(9, f"kernels vs plain, bfloat16: {msg} (limit {SCORE_RMS_TOL}); "
+           f"|d loss| {d_loss:.2e} (limit {SCORE_LOSS_TOL})")
+    assert d_loss <= SCORE_LOSS_TOL
+    del logits, plain_logits
+    saved = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        got, _, f32_ms = timed_forward(cfg, params, tokens)
+        want, _, f32_plain_ms = timed_forward(plain_cfg, params, tokens)
+        d_loss = abs(float(M.loss_fn(cfg, params, batch)[0])
+                     - float(M.loss_fn(plain_cfg, params, batch)[0]))
+    finally:
+        M.COMPUTE_DTYPE = saved
+    msg = logits_close("scoring float32", got, want)
+    say(9, f"kernels vs plain, float32 compute ({f32_ms:.3f} / "
+           f"{f32_plain_ms:.3f} ms device): {msg} (limit {SCORE_F32_TOL} "
+           f"+ {SCORE_F32_TOL} * |plain|); |d loss| {d_loss:.2e} (limit "
+           f"{SCORE_F32_TOL})")
+    assert d_loss <= SCORE_F32_TOL
+    return launches, cfg, params
+
+
+def phase_anchor():
+    """The JAX package at full width, depth cut to one unit, against the
+    port with its kernels on the same numpy weights."""
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+
+    with open(MODEL_REFERENCE) as f:
+        ref = json.load(f)
+    unit = tuple(ref["cut"]["stages"][0][0])
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(ref["arch"]), stages=((unit, 1),),
+                              n_layers=ref["cut"]["n_layers"])
+    assert cfg.param_count() == ref["cut"]["param_count"]
+    t0 = time.perf_counter()
+    tree = convert.init_numpy(cfg, ref["seed"])
+    mamba = tree["stages"][0]["0"]["mamba"]
+    leaves = {"embed": tree["embed"], "unembed": tree["unembed"],
+              "stage0.0.mamba.wx": mamba["wx"],
+              "stage0.0.mamba.a_log": mamba["a_log"],
+              "shared_attn.attn.wq": tree["shared_attn"]["attn"]["wq"]}
+    for k, v in leaves.items():
+        want = ref["weights"][k]
+        assert v.reshape(-1)[:4].tolist() == want["head"], k
+        assert math.isclose(float(np.sum(v, dtype=np.float64)), want["sum"],
+                            rel_tol=1e-9, abs_tol=1e-9), k
+    params = convert.from_reference(cfg, tree, DEVICE)
+    del tree, mamba, leaves
+    say(10, f"{cfg.param_count()} parameters redrawn from seed "
+            f"{ref['seed']} (fingerprint equal to the reference's) and "
+            f"moved to the card in {time.perf_counter() - t0:.3f} s")
+    tokens = torch.tensor(ref["tokens"], device=DEVICE)
+    labels = torch.tensor(ref["labels"], device=DEVICE)
+    hidden, *_ = M.forward(cfg, params, tokens)
+    logits = M.unembed(cfg, params, hidden).float()
+    loss, _ = M.loss_fn(cfg, params, {"tokens": tokens, "labels": labels})
+    err, top1 = 0.0, 0
+    for e in ref["top_logits"]:
+        row = logits[e["row"], e["pos"]]
+        want = torch.tensor(e["logits"], device=DEVICE)
+        err = max(err, float((row[e["ids"]] - want).abs().max()))
+        top1 += int(torch.argmax(row)) == e["ids"][0]
+    d_loss = abs(float(loss) - ref["loss"])
+    n = len(ref["top_logits"])
+    say(10, f"vs the reference (jax {ref['jax_version']}, attn_impl "
+            f"{ref['attn_impl']}, {len(unit)} layers at full width, "
+            f"{tokens.shape[0]} x {tokens.shape[1]} tokens): top-10 logits "
+            f"max |diff| {err:.4f} (limit {ANCHOR_LOGIT_TOL}), top-1 id "
+            f"equal at {top1} of {n} positions, loss {float(loss):.6f} vs "
+            f"{ref['loss']:.6f} (limit {ANCHOR_LOSS_TOL})")
+    assert err <= ANCHOR_LOGIT_TOL and d_loss <= ANCHOR_LOSS_TOL
+    assert top1 >= n - 2
+
+
+def phase_serving(cfg, params):
+    """ServeEngine at full width: every request completes; the engine's
+    prefill (the plain route with a cache) agrees with a cache-free plain
+    forward; no kernel launches, as in the reference's routing."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+
+    rng = np.random.default_rng(SERVE["seed"])
+    lo, hi = SERVE["prompt"]
+    n_lo, n_hi = SERVE["new_tokens"]
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, int(rng.integers(lo, hi + 1))).tolist(),
+                max_new_tokens=int(rng.integers(n_lo, n_hi + 1)))
+            for i in range(SERVE["n_requests"])]
+    eng = ServeEngine(cfg, params, n_slots=SERVE["n_slots"],
+                      max_seq=SERVE["max_seq"])
+    for r in reqs:
+        eng.submit(r)
+    fa.reset_launches()
+    ss.reset_launches()
+    with host_clock(((M, "prefill"), (M, "decode_step"))) as spent:
+        t0 = time.perf_counter()
+        ticks = eng.run(max_ticks=10_000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+    n_tok = sum(len(r.output) for r in reqs)
+    lens = [len(r.prompt) for r in reqs]
+    say(11, f"ServeEngine {SERVE['n_slots']} slots, max_seq "
+            f"{SERVE['max_seq']}: {len(reqs)} requests (prompts {lens}, "
+            f"{sum(lens)} tokens) done in {ticks} ticks, {n_tok} tokens in "
+            f"{wall:.3f} s"
+            f" = {n_tok / wall:.2f} tokens/s host wall clock incl. prefill; "
+            f"{host_split(wall, spent)}; kernel launches {launches} "
+            f"[{CARD}]")
+    for r in reqs:
+        assert r.done and len(r.output) == r.max_new_tokens, r.rid
+        assert all(0 <= t < cfg.vocab for t in r.output), r.rid
+    assert launches == {"flash_attention": 0, "ssd_scan": 0}
+    first = torch.tensor([reqs[0].prompt], device=DEVICE)
+    pre, *_ = M.prefill(cfg, params, first, SERVE["max_seq"])
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+    hidden, *_ = M.forward(plain_cfg, params, first)
+    full = M.unembed(plain_cfg, params, hidden[:, -1:])
+    say(11, f"prefill (per-token recurrence, cached attention) vs a "
+            f"cache-free plain forward on request 0: "
+            f"{logits_close('prefill', pre, full)}")
+    return n_tok / wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -679,15 +1235,23 @@ def main() -> int:
                f"{timed[mode]['plain_ms']:.1f} ms, bound "
                f"{timed[mode]['bound_ms']:.4f} ms [{CARD}]")
     timed[noc_step.STATISTICAL] = stat
-    say(7, f"whole run {time.perf_counter() - t0:.1f} s")
+    timed.update(phase_kernels())
+    model_launches, cfg, params = phase_scoring()
+    launches.update(model_launches)
+    phase_anchor()
+    phase_serving(cfg, params)
+    say(11, f"whole run {time.perf_counter() - t0:.1f} s")
+    names = (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS,
+             "flash_attention", "ssd_scan")
     record = {"kernels": [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": timed[name]["err"], "ms": timed[name]["ms"],
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],
-        "bound_by": timed[name]["bound_by"], "library_ms": None}
-        for name in (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS)]}
+        "bound_by": timed[name]["bound_by"],
+        "library_ms": timed[name].get("library_ms")}
+        for name in names]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,16 +27,12 @@ agree bit for bit; there is no reduction-order slack to allow for.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels import build
 
 # Flat metric-accumulator layout shared by the twin and the kernel: slot
 # names of the [N_SCALARS] int32 vector, then the rows of the
@@ -386,62 +382,26 @@ def run_plain(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # The CUDA kernel: built from csrc/noc_step.cu at first use.
 # ---------------------------------------------------------------------------
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                     "noc_step.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          os.pardir, os.pardir, os.pardir, "build",
-                          "torch_kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 THREADS = 1024
-_LIB = None
-_LIB_LOCK = threading.Lock()
-# nvcc's output of the last build (ptxas register and spill report).
-build_log = ""
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "the noc_step CUDA kernel is built at first use and needs "
-            "nvcc (the CUDA toolkit); none was found")
-    return path
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.noc_step_launch.restype = ctypes.c_int
+    lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 25
+                                    + [ctypes.c_int] * 18
+                                    + [ctypes.c_void_p])
+    lib.noc_step_workspace_words.restype = ctypes.c_longlong
+    lib.noc_step_workspace_words.argtypes = [ctypes.c_int] * 4
+
+
+LIBRARY = build.Library("noc_step", _configure,
+                        error_fn="noc_step_error_string")
 
 
 def load_library() -> ctypes.CDLL:
     """Compile ``csrc/noc_step.cu`` (once per source version) into
     ``build/torch_kernels/`` and load it."""
-    global _LIB, build_log
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        with open(_CSRC, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:12]
-        build_dir = os.path.normpath(_BUILD_DIR)
-        os.makedirs(build_dir, exist_ok=True)
-        so = os.path.join(build_dir, f"libnoc_step-{digest}.so")
-        if not os.path.exists(so):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-            os.close(fd)
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
-                                  capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed on {_CSRC}:\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        lib.noc_step_launch.restype = ctypes.c_int
-        lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 25
-                                        + [ctypes.c_int] * 18
-                                        + [ctypes.c_void_p])
-        lib.noc_step_error_string.restype = ctypes.c_char_p
-        lib.noc_step_error_string.argtypes = [ctypes.c_int]
-        lib.noc_step_workspace_words.restype = ctypes.c_longlong
-        lib.noc_step_workspace_words.argtypes = [ctypes.c_int] * 4
-        _LIB = lib
-        return lib
+    return LIBRARY.load()
 
 
 _GEOM_FIELDS = {"route": torch.int16, "kind": torch.int32,
@@ -572,9 +532,7 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
         starvation_limit, arb_iters, 1 if diagnostics else 0,
         score_pow2(lp1), THREADS, n_phases, 1 if strict_barrier else 0,
         watchdog, n_faults, stream)
-    if err:
-        raise RuntimeError("noc_step kernel launch failed: "
-                           + lib.noc_step_error_string(err).decode())
+    LIBRARY.check(err)
     for mode in launch_modes(trace, faults):
         mode_launches[mode] += 1
     return q_len, m_scal, m_kind, passes, ph_done
