@@ -10,12 +10,13 @@ each, started together) and runs eleven phases; any failure raises and
 exits non-zero.
 
 1. Device: the card's name and power limit (``nvidia-smi``), the kernels'
-   build time and their register reports.
+   build time and their register reports, and the measured cost of one
+   of noc_step's barriers at each cluster size 1-8.
 2. Kernel vs plain twin on the card, bit for bit: ``SimResult`` and
    ``kind_diagnostics`` over the 16-PE matrix of both families, 64 PEs
    under the paper's locality, a morph overlay, a repaired fabric, one
-   1024-PE point, a batched sweep against per-point runs, and the kernel's
-   wrapper against the twin on the main path's own shapes.
+   1024-PE point, a batched sweep against per-point runs, and every
+   kernel mode at 64 PEs split over clusters of 2, 3 and 8 CTAs.
 3. The main path at full width: the figs15_17 recipe (src_queue_depth 8,
    the paper's locality, uniform / bit_reversal / transpose at injection
    rate 0.625, 900 cycles with 300 of warm-up, seed 1) at 256 and 1024
@@ -24,8 +25,13 @@ exits non-zero.
    JAX reference's results).  Launch counts are zeroed just before and
    read just after.
 4. Times, with CUDA events after a warm-up: kernel ms per launch and us
-   per cycle per point on the main path's shapes, the twin's time on the
-   card, and the least time the card could take for the same work.
+   per cycle per point on the main path's shapes, each launch's cluster
+   size C, shared bytes per CTA (checked against the kernel's own count)
+   and barrier cost (and, at C > 1, how many such clusters the card holds
+   at once and the share of route hops that cross CTAs), the twin's time
+   on the card, and the least time the card could take for the same work;
+   each launch's output equals the twin's.  Then each launch held to one
+   arbitration pass a cycle, and split over 8 CTAs.
 5. Trace replay at full width: the recipe of ``benchmarks/trace_replay.py``
    (the three mined collective schedules, 64/256/1024 PEs, both families,
    ``src_queue_depth=8``, injection rate 1.0, seed 1) through
@@ -46,7 +52,9 @@ exits non-zero.
    full-width shapes in bfloat16 (Zamba2 scoring, h2o-danube's window and
    offset, width 128; the SSD at Zamba2 scoring), each timed with CUDA
    events beside its plain version, ``scaled_dot_product_attention`` for
-   attention, and its bound.
+   attention (a yardstick the port never calls) and the time of the
+   scalar-FMA kernel the tensor-core one replaced, and its bound and
+   share of it.
 9. The scoring path at full width: ``zamba2-1.2b`` (38 layers, d_model
    2048) from ``init_params`` on the card scores 2 x 4096 tokens through
    ``forward`` -> ``unembed`` and ``loss_fn``; 38 ``ssd_scan`` and 6
@@ -218,6 +226,24 @@ def phase_device():
         for line in m.LIBRARY.log.splitlines():
             if "registers" in line or "spill" in line:
                 say(1, f"ptxas [{m.LIBRARY.name}]: " + line.strip())
+    for c in range(1, noc_step.MAX_CLUSTER + 1):
+        cost = barrier_cost(c)
+        fewer = [noc_step.barrier_cost(c, t)["ns"] for t in (256, 512)]
+        say(1, f"noc_step {'block' if c == 1 else 'cluster'} barrier at "
+               f"cluster size {c}: {cost['ns']:.1f} ns ({cost['cycles']:.0f} "
+               f"SM cycles) with 1 024 threads per CTA; {fewer[0]:.1f} / "
+               f"{fewer[1]:.1f} ns with 256 / 512 [{CARD}]")
+
+_BARRIER: dict = {}
+
+
+def barrier_cost(cluster: int) -> dict:
+    """The measured cost of one of noc_step's barriers at a cluster size
+    (measured once per size and run)."""
+    from repro_torch.kernels import noc_step
+    if cluster not in _BARRIER:
+        _BARRIER[cluster] = noc_step.barrier_cost(cluster)
+    return _BARRIER[cluster]
 
 
 def phase_parity():
@@ -278,6 +304,53 @@ def phase_parity():
         err = max(err, result_err(rb, rt))
     say(2, f"batched sweep of {len(cfgs)} points == per-point kernel runs "
            f"== twin")
+    err = max(err, forced_clusters())
+    return err
+
+
+def forced_clusters() -> float:
+    """Every kernel mode at 64 PEs split over clusters of 2, 3 and 8 CTAs
+    (the main path picks 1 there): kernel == twin on the card."""
+    from repro_torch import trace as tr
+    from repro_torch.core import sim
+    from repro_torch.core.spec import TopologySpec
+    from repro_torch.faults import sample_faults
+    from repro_torch.kernels import noc_step
+
+    err = 0.0
+    topo = TopologySpec("ring_mesh", 64, src_queue_depth=8).build()
+    geom = sim.build_geometry(topo, "cuda")
+    faults = sample_faults(topo, n_dead_links=3, seed=2)
+    schedule = next(iter(tr.traces_for_schedules(64).values()))
+    cases = {
+        "statistical": [sim.SimConfig(inj_rate=r, seed=s, cycles=250,
+                                      warmup=50, **sim.PAPER_LOCALITY)
+                        for r, s in ((0.4, 1), (0.9, 2))],
+        "faults": [sim.SimConfig(inj_rate=0.6, seed=3, cycles=250,
+                                 warmup=50, faults=faults)],
+        "trace": [sim.SimConfig(inj_rate=1.0, seed=1, cycles=400, warmup=0,
+                                pattern=schedule)],
+        "trace+faults": [sim.SimConfig(inj_rate=1.0, seed=4, cycles=400,
+                                       warmup=0, pattern=schedule,
+                                       faults=faults)],
+    }
+    for label, cfgs in cases.items():
+        c0 = cfgs[0]
+        points = [sim.make_point(c, topo.n_pes, topo) for c in cfgs]
+        inj, dst, trace, flt, fault_u = sim.batch_operands(
+            points, topo.n_pes, c0.cycles, "cuda")
+        kw = dict(warmup=c0.warmup, starvation_limit=c0.starvation_limit,
+                  arb_iters=sim.ARB_ITERS, trace=trace, faults=flt,
+                  fault_u=fault_u, diagnostics=True)
+        want = noc_step.run_plain(geom, inj, dst, **kw)
+        for c in (2, 3, 8):
+            got = noc_step.run_fused(geom, inj, dst, cluster_size=c, **kw)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (label, c)
+                if x.numel():
+                    err = max(err, float((x.long() - y.long()).abs().max()))
+        say(2, f"ring_mesh_64 {label} on clusters of 2, 3 and 8 CTAs: "
+               f"kernel == twin (passes {want[3].tolist()})")
     return err
 
 
@@ -420,9 +493,25 @@ def time_launch(phase: int, topo, cfgs, reps: int) -> dict:
     b_ms, by = bound_ms(geom, len(cfgs), c0.cycles, got[3], n_phases,
                         n_faults, moved)
     modes = "+".join(noc_step.launch_modes(trace, faults))
+    cluster, nbytes = noc_step.plan_for(geom, trace, faults)
+    lp1, np1 = geom.route.shape[0], geom.cand.shape[0]
+    assert noc_step.kernel_shared_bytes(
+        -(-lp1 // cluster), -(-np1 // cluster), geom.depth, topo.n_pes,
+        n_faults, n_phases) == nbytes, (topo.name, nbytes)
+    cost = barrier_cost(cluster)
+    resident = noc_step.max_active_clusters(cluster, nbytes)
+    assert resident >= 1, (topo.name, cluster, nbytes)
+    if cluster > 1 and phase == 4:
+        share = noc_step.remote_share(geom, cluster)
+        say(phase, f"{topo.name}: {resident} clusters of {cluster} fit the "
+                   f"card at once; share of route hops whose target "
+                   f"channel / next queue sits in another CTA: "
+                   f"{share['channel']:.3f} / {share['next_row']:.3f}")
     say(phase, f"{topo.name} {modes}: L+1={geom.route.shape[0]} "
                f"batch={len(cfgs)} cycles={c0.cycles} phases={n_phases} "
-               f"fault entries={n_faults} | kernel {ms:.3f} ms/launch "
+               f"fault entries={n_faults} | cluster C={cluster}, "
+               f"{nbytes} B shared per CTA, barrier {cost['ns']:.1f} ns "
+               f"| kernel {ms:.3f} ms/launch "
                f"({ms * 1e3 / c0.cycles / len(cfgs):.3f} us per cycle per "
                f"point) | twin on the card {plain_ms:.1f} ms | bound "
                f"{b_ms:.4f} ms ({by}) | arbitration passes "
@@ -465,11 +554,39 @@ def path_groups(exps, modes=None):
 
 
 def phase_times():
-    """Kernel vs twin on the main path's own shapes, timed."""
+    """Kernel vs twin on the main path's own shapes, timed; then where a
+    launch's time goes: the same launch held to one arbitration pass a
+    cycle, and split over a cluster of 8 CTAs."""
     exps, _ = main_path_experiments()
-    rows = [time_launch(4, topo, cfgs, reps=5)
-            for topo, cfgs in path_groups(exps)]
+    groups = path_groups(exps)
+    rows = [time_launch(4, topo, cfgs, reps=5) for topo, cfgs in groups]
+    for topo, cfgs in groups:
+        variant_times(topo, cfgs)
     return summed(rows)
+
+
+def variant_times(topo, cfgs, reps: int = 3) -> None:
+    """Device ms of the launch on ``topo`` with ``arb_iters=1`` (the
+    cycle's fixed stages and one pass) and with ``cluster_size=8``; their
+    results are not the simulator's and are not kept."""
+    from repro_torch.core import sim
+    from repro_torch.kernels import noc_step
+
+    c0 = cfgs[0]
+    geom = sim.build_geometry(topo, "cuda")
+    points = [sim.make_point(c, topo.n_pes, topo) for c in cfgs]
+    inj, dst, trace, faults, fault_u = sim.batch_operands(
+        points, topo.n_pes, c0.cycles, "cuda")
+    kw = dict(warmup=c0.warmup, starvation_limit=c0.starvation_limit,
+              trace=trace, faults=faults, fault_u=fault_u)
+    one = event_ms(lambda: noc_step.run_fused(geom, inj, dst, arb_iters=1,
+                                              **kw), reps)
+    eight = event_ms(lambda: noc_step.run_fused(
+        geom, inj, dst, arb_iters=sim.ARB_ITERS, cluster_size=8, **kw), reps)
+    say(4, f"{topo.name}: one arbitration pass a cycle {one:.3f} ms/launch "
+           f"({one * 1e3 / c0.cycles:.2f} us per cycle of the launch); all "
+           f"passes on clusters of 8 CTAs {eight:.3f} ms/launch (the "
+           f"planner picks C={noc_step.plan_for(geom)[0]}) [{CARD}]")
 
 
 # ---------------------------------------------------------------------------
@@ -730,6 +847,12 @@ FLASH_SHAPES = [
     ("qwen d128", (1, 28, 4, 2048, 2048, 128, True, None)),
 ]
 SSD_SHAPES = [("zamba2 scoring", (2, 64, 1, 4096, 64, 64, 128))]
+# The scalar-FMA bfloat16 kernel that the tensor-core one replaced, at the
+# same shapes (PERF.md's kernel table, earlier times; NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside the current kernel.
+SCALAR_FLASH_MS = {"zamba2 scoring": 10.465,
+                 "h2o-danube window 4096, offset 4096": 12.778,
+                 "qwen d128": 2.705}
 SCORE_BATCH, SCORE_SEQ = 2, 4096
 SERVE = dict(n_slots=4, max_seq=512, n_requests=6, prompt=(64, 256),
              new_tokens=(16, 32), seed=11)
@@ -739,7 +862,10 @@ SERVE = dict(n_slots=4, max_seq=512, n_requests=6, prompt=(64, 256),
 # cumsum and product order, carried through exp, on outputs that are sums
 # of terms far larger than themselves; the reference's own tolerance
 # between SSD algorithms); both 2e-2 in bfloat16 (outputs rounded to
-# bfloat16 on each side).
+# bfloat16 on each side; the bfloat16 attention kernel also rounds the
+# softmax probabilities to bfloat16 as the operand of its P V product, as
+# every flash kernel on tensor cores does, while the plain version keeps
+# them in float32).
 TOL = {("flash_attention", torch.float32): 2e-5,
        ("flash_attention", torch.bfloat16): 2e-2,
        ("ssd_scan", torch.float32): 3e-4,
@@ -967,11 +1093,12 @@ def phase_kernels() -> dict:
                                              window=window), reps=1)
         lib_ms = sdpa_ms(q, k, v, shape)
         b_ms, by = flash_bound(shape, 2)
-        say(8, f"flash_attention {label} {shape[:6]} bf16: kernel "
-               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
-               f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
-               f"{b_ms:.4f} ms ({by}, {b_ms / ms:.1%} of it), max |diff| "
-               f"{e:.3g} [{CARD}]")
+        say(8, f"flash_attention {label} {shape[:6]} bf16, tensor cores: "
+               f"kernel {ms:.3f} ms (the scalar-FMA kernel "
+               f"{SCALAR_FLASH_MS[label]:.3f} ms), plain {plain_ms:.3f} ms, "
+               f"scaled_dot_product_attention {lib_ms:.3f} ms (kernel "
+               f"{ms / lib_ms:.2f}x of it), bound {b_ms:.4f} ms ({by}, "
+               f"{b_ms / ms:.1%} of it), max |diff| {e:.3g} [{CARD}]")
         if i == 0:
             out["flash_attention"] = dict(ms=ms, plain_ms=plain_ms,
                                           bound_ms=b_ms, bound_by=by,

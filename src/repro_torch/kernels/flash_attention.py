@@ -7,7 +7,11 @@ queries at the kv tail).  On CUDA tensors it launches the hand-written
 kernel ``csrc/flash_attention.cu`` (the port of the Pallas
 ``_flash_kernel``; the source says what bounds it and what its design
 does about that) on the current stream, or raises: a missing compiler, a
-refused launch or an input it does not take never falls back.  On CPU
+refused launch or an input it does not take never falls back.  The
+kernel has two instantiations chosen by dtype: bfloat16 (the model's
+path) multiplies on the tensor cores (``mma.sync``, 128 query rows per
+block, a cp.async K/V ring), float32 keeps the scalar-FMA kernel so that
+it agrees with ``plain`` to 2e-5.  On CPU
 tensors it runs ``plain``, the ported ``attention_ref`` (or
 ``attention_chunked`` above 1 024 queries, as the reference's model routes
 it).  ``launches`` counts the kernel's launches.
@@ -82,7 +86,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     block_q: int = 128, block_k: int = 128):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in
     q.dtype.  ``block_q`` / ``block_k`` are the reference's tiling, kept as
-    its preconditions; the kernel tiles by 64 internally."""
+    its preconditions; the kernel tiles by its own sizes internally."""
     global launches
     _check(q, k, v, window, block_q, block_k)
     if q.device.type == "cpu":
@@ -97,6 +101,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"width in {HEAD_DIMS}, got {q.dtype}, d={d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k and v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel copies 16-byte chunks: q, k and v "
+                         "must start at 16-byte aligned addresses")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     lib = load_library()

@@ -15,20 +15,26 @@ faulty wire are dropped).  Trace replay and faults combine.
 
 ``run_fused`` runs the whole cycle loop as one launch of the hand-written
 kernel ``csrc/noc_step.cu`` (the port of the reference's Pallas
-``_noc_step_kernel``): one thread block per sweep point, looping over the
-cycles inside the kernel, with trace replay and faults as compile-time
-modes.  It takes CUDA tensors only: it never runs the twin in its place,
-and a missing compiler, a refused launch or a fault raises.  ``run_plain``
-is the CPU's path.
+``_noc_step_kernel``): one thread-block cluster of C CTAs per sweep point,
+its queue state in their shared memory, looping over the cycles inside the
+kernel, with trace replay and faults as compile-time modes.
+``cluster_plan`` picks C, the smallest cluster whose per-CTA slice fits
+the card's 227 KB of shared memory per block.  ``run_fused`` takes CUDA
+tensors only: it never runs the twin in its place, and a missing
+compiler, a refused launch or a fault raises.  ``run_plain`` is the CPU's
+path.
 
 Every accumulator is an int32, so the twin, the kernel and the reference
 agree bit for bit; there is no reduction-order slack to allow for.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple
+
+import numpy as np
 
 import torch
 
@@ -383,15 +389,228 @@ def run_plain(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
 # The CUDA kernel: built from csrc/noc_step.cu at first use.
 # ---------------------------------------------------------------------------
 THREADS = 1024
+# Shared memory a block may opt in to on the H100 (227 KB), and the
+# largest portable thread-block cluster.
+SHARED_LIMIT_BYTES = 232_448
+MAX_CLUSTER = 8
+# Words of the kernel's per-CTA control block (counters, metric partials,
+# fixpoint flags, trace barrier state, the active-row count):
+# csrc/noc_step.cu's CTL_WORDS.
+CTL_WORDS = 84
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def shared_bytes(rows: int, chans: int, depth: int, P: int, F: int,
+                 n_phases: int) -> int:
+    """Bytes of one CTA's shared memory holding ``rows`` queue rows and
+    ``chans`` output channels: the layout of ``carve`` in
+    csrc/noc_step.cu, each array rounded up to 16 bytes.  int32: the
+    packed queue words, the pre-move heads (two slots), the scores, each
+    row's incoming sender, the target queue's score, the channel maxima
+    (three slots), trace mode's per-PE sent counts, the four fault-entry
+    columns, ph_total and ph_done, the control block.  16-bit: nxt, the
+    channel each head targets, wait, phys, prio, inj_pe, the list of
+    active rows, the target queue's channel, the cycle's destination, the
+    row's id in the geometry's order.  Bytes: q_len, cap, kind with
+    is_sink and the candidate bit, the target queue's free slots, the
+    queue's ring head, the cycle's injection, and the flags (active, win,
+    feas; two slots)."""
+    i32 = (rows * depth, 2 * rows, rows, rows, rows, 3 * chans,
+           P if n_phases > 0 else 0, F, F, F, F, n_phases, n_phases,
+           CTL_WORDS)
+    return (sum(_a16(4 * n) for n in i32) + 10 * _a16(2 * rows)
+            + 6 * _a16(rows) + _a16(2 * rows))
+
+
+def cluster_plan(L1: int, NP1: int, depth: int, P: int, F: int,
+                 n_phases: int, *, cluster: int | None = None
+                 ) -> tuple[int, int]:
+    """``(C, shared_bytes)``: the smallest cluster of C <= 8 CTAs whose
+    per-CTA slice (``ceil(L1 / C)`` queue rows, ``ceil(NP1 / C)`` output
+    channels, the ``F`` fault entries and ``n_phases`` trace phases) fits
+    ``SHARED_LIMIT_BYTES``, and that slice's bytes.  ``cluster`` asks for
+    one size (it must fit).  Raises ``ValueError`` when nothing fits."""
+    sizes = range(1, MAX_CLUSTER + 1) if cluster is None else (cluster,)
+    for c in sizes:
+        if not 1 <= c <= MAX_CLUSTER:
+            raise ValueError(f"cluster size must be 1..{MAX_CLUSTER}, "
+                             f"got {c}")
+        nbytes = shared_bytes(-(-L1 // c), -(-NP1 // c), depth, P, F,
+                              n_phases)
+        if nbytes <= SHARED_LIMIT_BYTES:
+            return c, nbytes
+    raise ValueError(
+        f"a geometry of {L1} queue rows and {NP1} channels (depth {depth}, "
+        f"{F} fault entries, {n_phases} trace phases) needs more than "
+        f"{SHARED_LIMIT_BYTES} bytes of shared memory per CTA even at "
+        f"cluster size {sizes[-1]}")
+
+
+def locality_order(geom) -> tuple[np.ndarray, np.ndarray]:
+    """Orders of the queue rows and output channels that keep a node's
+    queues together and neighbouring nodes close: ``(rows, chans)``, each
+    a permutation that leaves the dummy row / channel last.
+
+    A node is a bucket of the fan-in tables (the queues arriving at it); a
+    row belongs to its destination node (its next hops leave from there),
+    else its source node; a channel to its source node, where the rows
+    that contend for it arrive.  Nodes are numbered breadth-first from a
+    least-connected one, neighbours by degree (Cuthill-McKee), so a
+    contiguous split of the rows is a compact patch of the fabric."""
+    cand, intab = geom.cand.cpu().numpy(), geom.intab.cpu().numpy()
+    phys = geom.phys.cpu().numpy()
+    lp1, np1 = intab.shape[0], cand.shape[0]
+    pad = lp1 - 1
+    keys: dict = {}
+
+    def bucket(row) -> int:
+        k = tuple(int(q) for q in row if q != pad)
+        return keys.setdefault(k, len(keys)) if k else -1
+    chan_node = np.array([bucket(cand[c]) for c in range(np1)])
+    dst_node = np.full(lp1, -1)
+    for c in range(np1):
+        for q in cand[c]:
+            if q != pad:
+                dst_node[q] = chan_node[c]
+    src_node = np.array([bucket(intab[q]) for q in range(lp1)])
+    adj: list[set] = [set() for _ in keys]
+    for a, b in zip(src_node[:-1], dst_node[:-1]):
+        if a >= 0 and b >= 0 and a != b:
+            adj[a].add(b)
+            adj[b].add(a)
+    degree = [len(x) for x in adj]
+    seen = [False] * len(adj)
+    visit = []
+    for start in sorted(range(len(adj)), key=degree.__getitem__):
+        if not seen[start]:
+            seen[start] = True
+            queue = collections.deque([start])
+            while queue:
+                u = queue.popleft()
+                visit.append(u)
+                for v in sorted(adj[u], key=degree.__getitem__):
+                    if not seen[v]:
+                        seen[v] = True
+                        queue.append(v)
+    rank = np.empty(len(adj) + 2, np.int64)
+    rank[visit] = np.arange(len(visit))
+    rank[-2:] = len(visit), len(visit) + 1   # no node, then the dummy
+    row_node = np.where(dst_node >= 0, dst_node, src_node)
+    row_node[pad] = -1
+    row_key = rank[np.where(row_node >= 0, row_node, -2)]
+    row_key[pad] = rank[-1]
+    for q in range(pad):
+        if chan_node[phys[q]] < 0:       # a channel nothing arrives for
+            chan_node[phys[q]] = row_node[q]
+    chan_key = rank[np.where(chan_node >= 0, chan_node, -2)]
+    chan_key[np1 - 1] = rank[-1]
+    return (np.lexsort((np.arange(lp1), row_key)),
+            np.lexsort((np.arange(np1), chan_key)))
+
+
+def remote_share(geom, cluster: int) -> dict:
+    """The share of the live route hops (a row, the next queue of its
+    head) whose accesses cross CTAs in the kernel's layout at cluster size
+    ``cluster``: ``channel`` when the row's target channel (whose maximum
+    it raises and reads) sits in another CTA, ``next_row`` when the next
+    queue (whose flags, maximum and sender slot it reads or raises) does."""
+    lp1, np1 = geom.route.shape[0], geom.cand.shape[0]
+    if cluster > 1:
+        rows, chans = locality_order(geom)
+    else:
+        rows, chans = np.arange(lp1), np.arange(np1)
+    row_at, chan_at = np.empty(lp1, np.int64), np.empty(np1, np.int64)
+    row_at[rows], chan_at[chans] = np.arange(lp1), np.arange(np1)
+    rrank = row_at // -(-lp1 // cluster)
+    crank = chan_at // -(-np1 // cluster)
+    route = geom.route.cpu().numpy().astype(np.int64)[:-1]
+    live = route >= 0
+    hop = np.clip(route, 0, lp1 - 1)
+    own = np.broadcast_to(rrank[:-1, None], route.shape)
+    phys = geom.phys.cpu().numpy()
+
+    def share(remote) -> float:
+        return float(remote[live].mean()) if live.any() else 0.0
+    return {"channel": share(crank[phys[hop]] != own),
+            "next_row": share(rrank[hop] != own)}
+
+
+class Layout(NamedTuple):
+    """The kernel's static operands in its row and channel order, on the
+    geometry's device: each table permuted, ids renumbered, and the
+    original id of each row (``orig``).  ``rows`` / ``row_at`` (int64)
+    map kernel positions to geometry rows and back; None when the order
+    is the geometry's own."""
+
+    kind: torch.Tensor
+    prio: torch.Tensor
+    cap: torch.Tensor
+    phys: torch.Tensor
+    is_sink: torch.Tensor
+    inj_pe: torch.Tensor
+    contends: torch.Tensor
+    orig: torch.Tensor
+    rows: torch.Tensor | None
+    row_at: torch.Tensor | None
+
+
+# Layouts by (static tables, locality order?): the tables of a topology are
+# built once per device (core.sim caches them), so the key is their
+# identity; the entry holds the cand tensor to check it is still the same.
+_LAYOUTS: dict = {}
+
+
+def layout(geom, cluster: int) -> Layout:
+    """The kernel's ``Layout`` for ``geom``: the geometry's own order at
+    C = 1, ``locality_order`` above it (so fewer accesses cross CTAs)."""
+    key = (id(geom.cand), cluster > 1)
+    hit = _LAYOUTS.get(key)
+    if hit is not None and hit[0] is geom.cand:
+        return hit[1]
+    dev = geom.cand.device
+    lp1 = geom.route.shape[0]
+    cont = torch.zeros(lp1, dtype=torch.uint8, device=dev)
+    cont[geom.cand.reshape(-1).long()] = 1
+    cont[lp1 - 1] = 0
+    if cluster == 1:
+        out = Layout(geom.kind, geom.prio, geom.cap, geom.phys,
+                     geom.is_sink, geom.inj_pe, cont,
+                     torch.arange(lp1, dtype=torch.int16, device=dev),
+                     None, None)
+    else:
+        order, chan_order = locality_order(geom)
+        rows = torch.from_numpy(order).to(dev)
+        row_at = torch.empty_like(rows)
+        row_at[rows] = torch.arange(lp1, device=dev)
+        chan_at = torch.empty(len(chan_order), dtype=torch.int64, device=dev)
+        chan_at[torch.from_numpy(chan_order).to(dev)] = torch.arange(
+            len(chan_order), device=dev)
+        out = Layout(geom.kind[rows].contiguous(), geom.prio[rows].contiguous(),
+                     geom.cap[rows].contiguous(),
+                     chan_at[geom.phys[rows].long()].to(torch.int32),
+                     geom.is_sink[rows].contiguous(),
+                     geom.inj_pe[rows].contiguous(), cont[rows].contiguous(),
+                     rows.to(torch.int16), rows, row_at)
+    _LAYOUTS[key] = (geom.cand, out)
+    return out
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     lib.noc_step_launch.restype = ctypes.c_int
-    lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 25
-                                    + [ctypes.c_int] * 18
+    lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 23
+                                    + [ctypes.c_int] * 16
                                     + [ctypes.c_void_p])
-    lib.noc_step_workspace_words.restype = ctypes.c_longlong
-    lib.noc_step_workspace_words.argtypes = [ctypes.c_int] * 4
+    lib.noc_step_shared_bytes.restype = ctypes.c_longlong
+    lib.noc_step_shared_bytes.argtypes = [ctypes.c_int] * 6
+    lib.noc_step_max_active_clusters.restype = ctypes.c_int
+    lib.noc_step_max_active_clusters.argtypes = [
+        ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+    lib.noc_step_barrier_probe.restype = ctypes.c_int
+    lib.noc_step_barrier_probe.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p]
 
 
 LIBRARY = build.Library("noc_step", _configure,
@@ -404,15 +623,51 @@ def load_library() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
+def kernel_shared_bytes(rows: int, chans: int, depth: int, P: int, F: int,
+                        n_phases: int) -> int:
+    """The kernel's own count of ``shared_bytes`` (its ``carve``)."""
+    return int(load_library().noc_step_shared_bytes(rows, chans, depth, P,
+                                                    F, n_phases))
+
+
+def max_active_clusters(cluster: int, nbytes: int) -> int:
+    """How many clusters of ``cluster`` CTAs with ``nbytes`` of shared
+    memory each the current card can hold at once."""
+    lib = load_library()
+    err = ctypes.c_int(0)
+    n = lib.noc_step_max_active_clusters(cluster, nbytes, ctypes.byref(err))
+    LIBRARY.check(err.value)
+    return n
+
+
+def barrier_cost(cluster: int, threads: int = THREADS,
+                 iters: int = 20_000) -> dict:
+    """The cost of one of the kernel's barriers at cluster size
+    ``cluster`` (a block barrier at 1) over ``threads`` threads per CTA:
+    device ns per barrier from CUDA events around one launch of ``iters``
+    barriers, and the SM cycles per barrier that clock64() counted on the
+    slowest CTA."""
+    lib = load_library()
+    cycles = torch.zeros(cluster, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    LIBRARY.check(lib.noc_step_barrier_probe(cluster, threads, 100,
+                                             cycles.data_ptr(), stream))
+    start.record()
+    LIBRARY.check(lib.noc_step_barrier_probe(cluster, threads, iters,
+                                             cycles.data_ptr(), stream))
+    stop.record()
+    torch.cuda.synchronize()
+    return {"ns": start.elapsed_time(stop) * 1e6 / iters,
+            "cycles": float(cycles.max()) / iters}
+
+
 _GEOM_FIELDS = {"route": torch.int16, "kind": torch.int32,
                 "prio": torch.int32, "cap": torch.int32,
                 "phys": torch.int32, "is_sink": torch.bool,
                 "pe_src_link": torch.int32, "inj_pe": torch.int32,
                 "cand": torch.int32, "intab": torch.int32}
-# Dynamic shared memory the kernel may take for its fault entries and
-# phase tables without opting in to more (4 int32 words per entry, 2 per
-# phase).
-SHARED_LIMIT_BYTES = 48 * 1024
 
 
 def _check_tensor(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
@@ -422,6 +677,34 @@ def _check_tensor(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
             f"{name} must be a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device}")
+
+
+def _check_narrow(geom, starvation_limit: int) -> None:
+    """The kernel keeps q_len and cap in a byte, wait in 16 bits
+    (saturated at ``starvation_limit``), prio, phys, inj_pe and queue ids
+    in 16 bits.  Refuse what that would not hold exactly."""
+    if not 0 <= starvation_limit <= 0xFFFF:
+        raise ValueError(f"starvation_limit must be in [0, 65535] for the "
+                         f"kernel, got {starvation_limit}")
+    lp1, np1 = geom.route.shape[0], geom.cand.shape[0]
+    if lp1 > 0x7FFF or np1 > 0x7FFF or geom.depth > 254:
+        raise ValueError(f"the kernel takes < 32768 queue rows and channels "
+                         f"and depth <= 254, got {lp1}, {np1}, "
+                         f"{geom.depth}")
+    # Rows over capacity 254 (the unbounded ejection queues) must never
+    # hold a flit: sinks that are not inject queues.  The dummy row is
+    # exempt (nothing routes into it).
+    big = geom.cap[:-1] > 254
+    bad = torch.stack([
+        (big & (~geom.is_sink[:-1] | (geom.inj_pe[:-1] >= 0))).any(),
+        (geom.prio < -0x8000).any() | (geom.prio > 0x7FFF).any(),
+        (geom.cap < 0).any()]).tolist()
+    if any(bad):
+        raise ValueError(
+            "geometry does not fit the kernel's narrowed rows: "
+            + str(dict(zip(("unbounded queue that holds flits",
+                            "prio outside int16", "negative capacity"),
+                           bad))))
 
 
 def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor,
@@ -451,7 +734,6 @@ def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor,
     if geom.intab.shape[0] != lp1 or geom.cand.dim() != 2:
         raise ValueError("cand must be [NP1, Fc] and intab [L+1, Fi]")
     batch, cycles = inj_s.shape[:2]
-    n_phases = n_faults = 0
     if trace is not None:
         n_phases = trace[0].shape[1] if trace[0].dim() == 3 else 0
         if n_phases < 1:
@@ -472,26 +754,35 @@ def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor,
             _check_tensor(name, t, dtype, (batch, n_faults), dev)
         _check_tensor("fault_u", fault_u, torch.float32,
                       (batch, cycles, n_faults), dev)
-    shared = 4 * (4 * n_faults + 2 * n_phases)
-    if shared > SHARED_LIMIT_BYTES:
-        raise ValueError(
-            f"{n_faults} fault entries and {n_phases} trace phases need "
-            f"{shared} bytes of shared memory, over the kernel's "
-            f"{SHARED_LIMIT_BYTES}")
+
+
+def plan_for(geom, trace=None, faults=None,
+             cluster: int | None = None) -> tuple[int, int]:
+    """``cluster_plan`` for a launch on ``geom`` with these operands."""
+    return cluster_plan(
+        geom.route.shape[0], geom.cand.shape[0], geom.depth,
+        geom.route.shape[1], 0 if faults is None else faults[0].shape[1],
+        0 if trace is None else trace[0].shape[1], cluster=cluster)
 
 
 def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
               warmup: int, starvation_limit: int, arb_iters: int,
               trace=None, faults=None, fault_u: torch.Tensor | None = None,
               strict_barrier: bool = False, watchdog: int = 0,
-              diagnostics: bool = False):
+              diagnostics: bool = False, cluster_size: int | None = None):
     """Run every cycle of a batch of points as one kernel launch.
 
     Same contract as ``run_plain``, on CUDA tensors only: the kernel (one
-    thread block per point) is launched on the current stream.  Trace
-    replay and faults pick the kernel's compile-time modes.  The kernel
-    relies on each PE's inject queue being the one row whose ``inj_pe``
-    names that PE, which ``core.sim`` checks when it builds a geometry.
+    cluster of ``cluster_plan``'s C CTAs per point) is launched on the
+    current stream.  Trace replay and faults pick the kernel's
+    compile-time modes.  ``cluster_size`` forces C (tests use it to run a
+    small geometry across a cluster; the simulator never passes it).  The
+    kernel relies on each PE's inject queue being the one row whose
+    ``inj_pe`` names that PE, which ``core.sim`` checks when it builds a
+    geometry, and on the structural fan-in tables (every route hop is
+    node-local, and ``cand`` / ``intab`` list every queue arriving at a
+    node; ``core.sim`` asserts the first for every route table it builds):
+    the kernel scatters where the twin gathers over those tables.
     """
     dev = inj_s.device
     if dev.type != "cuda":
@@ -499,40 +790,50 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
             f"run_fused launches the CUDA kernel and takes CUDA tensors, "
             f"got {dev}; run_plain runs the plain twin on any device")
     _check_inputs(geom, inj_s, dst_s, trace, faults, fault_u)
+    _check_narrow(geom, starvation_limit)
+    cluster, _ = plan_for(geom, trace, faults, cluster_size)
     batch, cycles, p_pes = inj_s.shape
     lp1 = geom.route.shape[0]
-    np1, fc = geom.cand.shape
-    fi = geom.intab.shape[1]
-    depth = geom.depth
+    np1 = geom.cand.shape[0]
     n_phases = 0 if trace is None else trace[0].shape[1]
     n_faults = 0 if faults is None else faults[0].shape[1]
     lib = load_library()
-    words = lib.noc_step_workspace_words(lp1, np1, depth, p_pes)
     i32 = dict(dtype=torch.int32, device=dev)
-    work = torch.empty((batch, words), **i32)
     q_len = torch.empty((batch, lp1), **i32)
     m_scal = torch.empty((batch, N_SCALARS), **i32)
     m_kind = torch.empty((batch, N_KIND_ROWS, 8), **i32)
     passes = torch.empty((batch,), **i32)
     ph_done = torch.empty((batch, n_phases), **i32)
+    lay = layout(geom, cluster)
+    route = geom.route
+    if lay.rows is not None:
+        # The route table in the kernel's order: its rows, and the ids it
+        # holds (-1 stays -1); the fault entries' queue ids likewise.
+        hop = geom.route[lay.rows].long()
+        route = torch.where(hop >= 0, lay.row_at[hop.clamp(min=0)],
+                            -1).to(torch.int16)
+        if faults is not None:
+            faults = (lay.row_at[faults[0].long()].to(torch.int32),
+                      *faults[1:])
     ph_ptrs = (0, 0, 0) if trace is None else tuple(
         t.data_ptr() for t in trace)
     f_ptrs = (0, 0, 0, 0) if faults is None else (
         fault_u.data_ptr(), *(t.data_ptr() for t in faults))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.noc_step_launch(
-        inj_s.data_ptr(), dst_s.data_ptr(), geom.route.data_ptr(),
-        geom.kind.data_ptr(), geom.prio.data_ptr(), geom.cap.data_ptr(),
-        geom.phys.data_ptr(), geom.is_sink.data_ptr(),
-        geom.pe_src_link.data_ptr(), geom.inj_pe.data_ptr(),
-        geom.cand.data_ptr(), geom.intab.data_ptr(), work.data_ptr(),
+        inj_s.data_ptr(), dst_s.data_ptr(), route.data_ptr(),
+        lay.kind.data_ptr(), lay.prio.data_ptr(), lay.cap.data_ptr(),
+        lay.phys.data_ptr(), lay.is_sink.data_ptr(),
+        lay.inj_pe.data_ptr(), lay.contends.data_ptr(), lay.orig.data_ptr(),
         q_len.data_ptr(), m_scal.data_ptr(), m_kind.data_ptr(),
         passes.data_ptr(), *ph_ptrs, ph_done.data_ptr(), *f_ptrs,
-        batch, lp1, p_pes, np1, fc, fi, depth, cycles, warmup,
+        batch, lp1, p_pes, np1, geom.depth, cycles, warmup,
         starvation_limit, arb_iters, 1 if diagnostics else 0,
-        score_pow2(lp1), THREADS, n_phases, 1 if strict_barrier else 0,
-        watchdog, n_faults, stream)
+        score_pow2(lp1), n_phases, 1 if strict_barrier else 0,
+        watchdog, n_faults, cluster, stream)
     LIBRARY.check(err)
     for mode in launch_modes(trace, faults):
         mode_launches[mode] += 1
+    if lay.rows is not None:
+        q_len = q_len[:, lay.row_at]
     return q_len, m_scal, m_kind, passes, ph_done

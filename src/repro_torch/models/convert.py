@@ -51,9 +51,10 @@ def _to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-def from_reference(cfg: ModelConfig, tree, device="cpu"):
+def from_reference(cfg: ModelConfig, tree, device="cuda"):
     """The reference's parameter tree (numpy leaves, repeats stacked) ->
-    the port's parameters on ``device``."""
+    the port's parameters on ``device`` (the card unless the caller asks
+    for the CPU, as the tests do)."""
     out = {k: _to_torch(v, device) for k, v in tree.items() if k != "stages"}
     out["stages"] = []
     for (_unit, reps), stage in zip(cfg.stages, tree["stages"]):

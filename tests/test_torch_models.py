@@ -21,6 +21,7 @@ Tolerances, each with its reason:
 * serving, float32 compute: per-step logits 2e-4, greedy tokens equal.
 """
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +49,7 @@ def setup():
     tcfg = convert.config_from_reference(rcfg)
     tree = convert.init_numpy(tcfg, seed=0)
     rparams = jax.tree.map(jnp.asarray, tree)
-    tparams = convert.from_reference(tcfg, tree)
+    tparams = convert.from_reference(tcfg, tree, device="cpu")
     return rcfg, tcfg, rparams, tparams
 
 
@@ -121,6 +122,21 @@ def test_parameters_round_trip_with_reference_shapes(setup):
     shapes = t_model.abstract_params(tcfg)
     assert [len(s) for s in shapes["stages"]] == [r for _, r in tcfg.stages]
     assert shapes["embed"].device.type == "meta"
+
+
+def test_from_reference_defaults_to_the_card(setup):
+    """Weights carried across land on the card unless the caller asks for
+    the CPU, as the fixture does; there they equal the numpy tree."""
+    _, tcfg, _, tparams = setup
+    device = inspect.signature(convert.from_reference).parameters["device"]
+    assert device.default == "cuda"
+    leaves = t_model.L.tree_leaves(tparams)
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+    tree = convert.init_numpy(tcfg, seed=0)
+    np.testing.assert_array_equal(tparams["embed"].numpy(), tree["embed"])
+    again = convert.from_reference(tcfg, tree, device="cpu")
+    for x, y in zip(leaves, t_model.L.tree_leaves(again)):
+        assert torch.equal(x, y)
 
 
 def test_init_params_draws_the_reference_distributions():
