@@ -50,11 +50,13 @@ exits non-zero.
 8. ``flash_attention`` and ``ssd_scan`` against their plain versions on
    the card: the CPU tests' matrices in float32 and bfloat16, then the
    full-width shapes in bfloat16 (Zamba2 scoring, h2o-danube's window and
-   offset, width 128; the SSD at Zamba2 scoring), each timed with CUDA
-   events beside its plain version, ``scaled_dot_product_attention`` for
-   attention (a yardstick the port never calls) and the time of the
-   scalar-FMA kernel the tensor-core one replaced, and its bound and
-   share of it.
+   offset, width 128; the SSD at Zamba2 scoring and at mamba2-1.3b's
+   d_state 128), each timed with CUDA events beside its plain version,
+   ``scaled_dot_product_attention`` for attention (a yardstick the port
+   never calls) and the time of the scalar-FMA kernel the tensor-core one
+   replaced, and its bound and share of it.  The SSD runs and is timed
+   at every split of P over k blocks that fits, each split's shared
+   bytes (the kernel's own count) checked against ``ssd_scan.plan``.
 9. The scoring path at full width: ``zamba2-1.2b`` (38 layers, d_model
    2048) from ``init_params`` on the card scores 2 x 4096 tokens through
    ``forward`` -> ``unembed`` and ``loss_fn``; 38 ``ssd_scan`` and 6
@@ -74,9 +76,9 @@ Launch counts are zeroed just before each of phases 3, 5, 6, 9 and 11 and
 read just after (by mode for noc_step).  Phases 5 and 6 split their host
 wall clock into its stages (topology builds, device geometry, streams and
 operands, the kernel, the reachability walk, the rest), phase 9 its
-forward's into the two kernels and the rest.  The line before the last is
-the kernels' JSON record; the last line is ``{"ok": true, "device":
-{...}}``.
+forward's into the two kernels and the rest, each with its share.  The
+line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -846,13 +848,17 @@ FLASH_SHAPES = [
                                              4096)),
     ("qwen d128", (1, 28, 4, 2048, 2048, 128, True, None)),
 ]
-SSD_SHAPES = [("zamba2 scoring", (2, 64, 1, 4096, 64, 64, 128))]
-# The scalar-FMA bfloat16 kernel that the tensor-core one replaced, at the
-# same shapes (PERF.md's kernel table, earlier times; NVIDIA H100 80GB
-# HBM3, 700.00 W), printed beside the current kernel.
+# The SSD at mamba2-1.3b's d_state 128 (N 128, P 64, chunk 128), which
+# only the bfloat16 kernel takes.
+SSD_SHAPES = [("zamba2 scoring", (2, 64, 1, 4096, 64, 64, 128)),
+              ("mamba2-1.3b d_state 128", (1, 8, 1, 512, 64, 128, 128))]
+# The scalar-FMA bfloat16 kernels that the tensor-core ones replaced, at
+# the same shapes (PERF.md's kernel table, earlier times; NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside the current kernels.
 SCALAR_FLASH_MS = {"zamba2 scoring": 10.465,
                  "h2o-danube window 4096, offset 4096": 12.778,
                  "qwen d128": 2.705}
+SCALAR_SSD_MS = {"zamba2 scoring": 3.084}
 SCORE_BATCH, SCORE_SEQ = 2, 4096
 SERVE = dict(n_slots=4, max_seq=512, n_requests=6, prompt=(64, 256),
              new_tokens=(16, 32), seed=11)
@@ -959,11 +965,15 @@ def check_close(name: str, label: str, got, want) -> float:
 
 def event_ms(fn, reps: int) -> float:
     """Device ms per call of ``fn``, CUDA events around ``reps`` calls
-    after one warm-up call."""
+    after one warm-up call.  A sleep kernel (~5 ms) holds the stream
+    first, so that the calls queue behind it and the events time the
+    device rather than the host's launch rate (a call of the SSD kernel
+    takes less device time than its wrapper takes on the host)."""
     fn()
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -1104,22 +1114,41 @@ def phase_kernels() -> dict:
                                           bound_ms=b_ms, bound_by=by,
                                           library_ms=lib_ms)
         del q, k, v
+    lib = ss.load_library()
     for i, (label, shape) in enumerate(SSD_SHAPES):
         ops = ssd_operands(shape, bf16, gen)
-        chunk = shape[-1]
-        e = check_close("ssd_scan", label, ss.ssd_scan(*ops, chunk=chunk),
-                        ss.plain(*ops, chunk=chunk))
-        err["ssd_scan"] = max(err["ssd_scan"], e)
-        ms = event_ms(lambda: ss.ssd_scan(*ops, chunk=chunk), reps=5)
+        bsz, h, _, _, p, n, chunk = shape
+        want = ss.plain(*ops, chunk=chunk)
+        k_plan, threads, nbytes = ss.plan(bsz * h, chunk, n, p, bf16)
+        per_k = []
+        for k in ss.splits(chunk, n, p, bf16):
+            # the kernel's own count of its shared memory against plan's
+            kb = ss.plan(bsz * h, chunk, n, p, bf16, split=k)[2]
+            assert lib.ssd_scan_shared_bytes(chunk, n, p, k, 1) == kb, (
+                label, k, kb)
+            e = check_close("ssd_scan", f"{label} k={k}",
+                            ss.ssd_scan(*ops, chunk=chunk, split=k), want)
+            err["ssd_scan"] = max(err["ssd_scan"], e)
+            ms_k = event_ms(lambda: ss.ssd_scan(*ops, chunk=chunk, split=k),
+                            reps=20)
+            per_k.append(f"k={k} ({bsz * h * k} blocks, {kb} B) "
+                         f"{ms_k:.4f} ms")
+        say(8, f"ssd_scan {label}: every split of P that fits: "
+               f"{'; '.join(per_k)} [{CARD}]")
+        ms = event_ms(lambda: ss.ssd_scan(*ops, chunk=chunk), reps=20)
         plain_ms = event_ms(lambda: ss.plain(*ops, chunk=chunk), reps=1)
         b_ms, by = ssd_bound(shape, 2)
-        say(8, f"ssd_scan {label} {shape} bf16: kernel {ms:.3f} ms, plain "
-               f"{plain_ms:.3f} ms, no single PyTorch call, bound "
-               f"{b_ms:.4f} ms ({by}, {b_ms / ms:.1%} of it), max |diff| "
-               f"{e:.3g} [{CARD}]")
+        scalar = (f" (the scalar-FMA kernel {SCALAR_SSD_MS[label]:.3f} ms)"
+                  if label in SCALAR_SSD_MS else "")
+        say(8, f"ssd_scan {label} {shape} bf16, tensor cores, plan k="
+               f"{k_plan} ({threads} threads, {nbytes} B shared): kernel "
+               f"{ms:.4f} ms{scalar}, plain {plain_ms:.3f} ms, no single "
+               f"PyTorch call, bound {b_ms:.4f} ms ({by}, {b_ms / ms:.1%} "
+               f"of it) [{CARD}]")
         if i == 0:
             out["ssd_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=by, library_ms=None)
+        del ops, want
     for name in out:
         out[name]["err"] = err[name]
     return out
@@ -1184,15 +1213,17 @@ def phase_scoring():
     with device_clock(((fa, "flash_attention"),
                        (ss, "ssd_scan"))) as spent:
         _, _, split_ms = timed_forward(cfg, params, tokens)
+    rest = split_ms - sum(spent.values())
     say(9, f"forward -> unembed, warm: host {runs[0][0]:.3f} / "
            f"{runs[1][0]:.3f} s, device {runs[0][1]:.3f} / {runs[1][1]:.3f}"
            f" ms; a third: {split_ms:.3f} ms device = flash_attention "
            f"{spent['flash_attention']:.3f} ms "
-           f"({per_forward['flash_attention']} calls), ssd_scan "
-           f"{spent['ssd_scan']:.3f} ms ({per_forward['ssd_scan']} calls), "
-           f"rest "
-           f"{split_ms - sum(spent.values()):.3f} ms (CUDA events around "
-           f"each wrapper call) [{CARD}]")
+           f"({per_forward['flash_attention']} calls, "
+           f"{spent['flash_attention'] / split_ms:.1%}), ssd_scan "
+           f"{spent['ssd_scan']:.3f} ms ({per_forward['ssd_scan']} calls, "
+           f"{spent['ssd_scan'] / split_ms:.1%}), rest {rest:.3f} ms "
+           f"({rest / split_ms:.1%}) (CUDA events around each wrapper "
+           f"call) [{CARD}]")
 
     plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
     plain_logits, plain_s, plain_dev = timed_forward(plain_cfg, params,

@@ -2,8 +2,9 @@
 
 Each kernel of the port is one ``csrc/<name>.cu`` file with a plain C
 interface.  ``build`` compiles it with nvcc for ``sm_90a`` into
-``build/torch_kernels/lib<name>-<digest>.so`` (keyed by the source's
-digest, so an edited source is rebuilt and an unchanged one is not) and
+``build/torch_kernels/lib<name>-<digest>.so`` (keyed by the digest of the
+source and the shared headers ``csrc/*.cuh``, so an edited source or
+header is rebuilt and an unchanged one is not) and
 ``load`` opens it with ctypes.  Nothing is compiled when a module is
 imported; a missing nvcc raises.
 """
@@ -38,8 +39,12 @@ def build(name: str) -> tuple[str, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
     library's path and nvcc's output ("" when nothing was compiled)."""
     source = os.path.join(CSRC, f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    sha = hashlib.sha1()
+    for path in [source] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()[:12]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(so):

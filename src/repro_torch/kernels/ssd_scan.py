@@ -8,23 +8,35 @@ y ``(B, H, S, P)`` in x.dtype).  On CUDA tensors it launches the
 hand-written kernel ``csrc/ssd_scan.cu`` (the port of the Pallas
 ``_ssd_kernel``; the source says what bounds it and what its design does
 about that) on the current stream, or raises: a missing compiler, a
-refused launch or an input it does not take never falls back.  dt and a
-are read as float32, as the reference's kernel reads them.  On CPU tensors
-it runs ``plain``, the ported ``ssd_chunked_ref``.  ``launches`` counts the
-kernel's launches.
+refused launch or an input it does not take never falls back.  Which
+kernel runs is decided by dtype alone: bfloat16 runs on the tensor cores
+(``mma.sync``, a cp.async tile ring, ``k`` blocks per (batch, head) from
+``plan``), float32 keeps the scalar-FMA kernel, one block per (batch,
+head), so that it agrees with ``plain`` to 3e-4.  dt and a are read as
+float32, as the reference's kernel reads them.  On CPU tensors it runs
+``plain``, the ported ``ssd_chunked_ref``.  ``launches`` counts the
+kernel's launches, one per call.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Shared memory a block may opt in to on an H100 (227 KB).
+# Shared memory a block may opt in to on an H100 (227 KB), and its SMs.
 SHARED_LIMIT_BYTES = 232448
+SMS = 132
+# Threads per block of the float32 (scalar) and bfloat16 (tensor-core)
+# kernels; the padded sizes of the bfloat16 kernel's state rows (N) and
+# block columns (P / k), its template instantiations.
+SCALAR_THREADS, TC_THREADS = 512, 256
+STATE_ROWS = (16, 32, 64, 128, 256)
+TILE_WIDTHS = (16, 32, 64)
 
 # Launches of the CUDA kernel since the last ``reset_launches()``.
 launches = 0
@@ -35,12 +47,104 @@ def reset_launches() -> None:
     launches = 0
 
 
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def kernel_dims(n: int, p: int, dtype) -> tuple[int, int]:
+    """N and P as ``dtype``'s kernel sees them: the bfloat16 kernel's rows
+    are 16-byte multiples, so the wrapper pads both to multiples of 8."""
+    return (n, p) if dtype == torch.float32 else (_round(n, 8), _round(p, 8))
+
+
+def shared_bytes(chunk: int, n: int, p: int, k: int, dtype) -> int | None:
+    """Bytes of dynamic shared memory one block of ``dtype``'s kernel
+    takes at chunk length ``chunk``, ``n`` state rows and ``p`` columns
+    split over ``k`` blocks per (batch, head), as the kernel's
+    ``ssd_scan_shared_bytes`` counts them; None for a split the kernel
+    does not take.  ``n`` and ``p`` as the kernel sees them
+    (``kernel_dims``).
+
+    float32 (k = 1): float32 state [N][P], x [L][P], b [L][N+1], c [L][N],
+    the score tile [L][L+1], cum, dt and w [L].  bfloat16, with L, N and
+    P / k padded to LP (a multiple of 16), NP (``STATE_ROWS``) and W
+    (``TILE_WIDTHS``) and rows padded by 8 elements: x [2][LP][W+8], b and
+    c [2][LP][NP+8] each, the state's hi and lo halves [NP][W+8] each (all
+    bf16), dt [2][LP] and cum, exp(cum) and w [3][LP] (float32)."""
+    if dtype == torch.float32:
+        if k != 1:
+            return None
+        return 4 * (n * p + chunk * p + chunk * (n + 1) + chunk * n
+                    + chunk * (chunk + 1) + 3 * chunk)
+    pc = p // k if k > 0 and p % k == 0 else 0
+    if n % 8 or n > STATE_ROWS[-1] or not pc or pc % 8 \
+            or pc > TILE_WIDTHS[-1]:
+        return None
+    lp = _round(chunk, 16)
+    np_ = next(r for r in STATE_ROWS if r >= n)
+    w = next(t for t in TILE_WIDTHS if t >= pc)
+    return (4 * lp * (w + 8) + 8 * lp * (np_ + 8) + 4 * np_ * (w + 8)
+            + 20 * lp)
+
+
+def splits(chunk: int, n: int, p: int, dtype) -> list[int]:
+    """Every k (blocks per (batch, head)) whose block fits
+    ``SHARED_LIMIT_BYTES`` at this shape, smallest first: 1 for float32;
+    for bfloat16, the k that cut the padded P into equal slices of 8 to 64
+    columns."""
+    n, p = kernel_dims(n, p, dtype)
+    ks = [1] if dtype == torch.float32 else range(1, p // 8 + 1)
+    return [k for k in ks
+            if (nb := shared_bytes(chunk, n, p, k, dtype)) is not None
+            and nb <= SHARED_LIMIT_BYTES]
+
+
+def plan(bh: int, chunk: int, n: int, p: int, dtype, *,
+         split: int | None = None) -> tuple[int, int, int]:
+    """``(k, threads, shared_bytes)`` of a launch over ``bh`` (batch,
+    head) pairs: float32 runs one scalar block per pair; bfloat16 ``k``
+    tensor-core blocks per pair, each owning P / k columns of the state.
+    ``split`` asks for one k (it must fit).  Raises ``ValueError`` when
+    nothing fits."""
+    fits = splits(chunk, n, p, dtype)
+    if not fits:
+        raise ValueError(
+            f"chunk {chunk}, N {n}, P {p} in {dtype} need more than "
+            f"{SHARED_LIMIT_BYTES} bytes of shared memory per block at "
+            f"every split of P")
+    if split is not None:
+        if split not in fits:
+            raise ValueError(f"split {split} does not fit chunk {chunk}, N "
+                             f"{n}, P {p} in {dtype}: {fits} do")
+        k = split
+    elif dtype == torch.float32:
+        k = 1
+    else:
+        k = _pick(bh, fits)
+    threads = SCALAR_THREADS if dtype == torch.float32 else TC_THREADS
+    return k, threads, shared_bytes(chunk, *kernel_dims(n, p, dtype), k,
+                                    dtype)
+
+
+def _pick(bh: int, fits: list[int]) -> int:
+    """The bfloat16 kernel's k, by measured time (chip_smoke.py phase 8;
+    PERF.md): the smallest fitting split whose blocks cover 90 % of the
+    SMs, else the largest.  Each extra block of a (batch, head) repeats
+    C B^T and M, which costs more than its warps hide once every SM has a
+    block: at Zamba2 scoring (128 pairs) k = 1 beat k = 2, 4 and 8; at 8
+    pairs k = 4 and 8 beat k = 1 by a quarter."""
+    for k in fits:
+        if bh * k >= 0.9 * SMS:
+            return k
+    return fits[-1]
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_launch.restype = ctypes.c_int
     lib.ssd_scan_launch.argtypes = ([ctypes.c_void_p] * 6
-                                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.ssd_scan_shared_bytes.restype = ctypes.c_longlong
-    lib.ssd_scan_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_shared_bytes.argtypes = [ctypes.c_int] * 5
 
 
 LIBRARY = build.Library("ssd_scan", _configure)
@@ -73,9 +177,15 @@ def _check(x, dt, a, b, c, chunk: int) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
+def _aligned(t):
+    """``t`` or, if its data does not start on 16 bytes, a copy."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, split: int | None = None):
     """x: (B, H, S, P); dt: (B, H, S); a: (H,); b, c: (B, G, S, N) with
-    H % G == 0.  Returns y: (B, H, S, P) in x.dtype."""
+    H % G == 0.  Returns y: (B, H, S, P) in x.dtype.  ``split`` forces the
+    bfloat16 kernel's k (tests and timings only; ``plan`` picks it)."""
     global launches
     _check(x, dt, a, b, c, chunk)
     if x.device.type == "cpu":
@@ -91,20 +201,31 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
                          f"bfloat16, got {x.dtype}, {b.dtype}, {c.dtype}")
     if not (x.is_contiguous() and b.is_contiguous() and c.is_contiguous()):
         raise ValueError("the kernel takes contiguous x, b and c")
+    k, _, shared = plan(bsz * h, chunk, n, p, x.dtype, split=split)
+    n_k, p_k = kernel_dims(n, p, x.dtype)
+    if x.dtype == torch.bfloat16:
+        # Zero columns of b and c add nothing to C B^T or to the state;
+        # zero columns of x give zero columns of y, cut off below.
+        if p_k != p:
+            x = F.pad(x, (0, p_k - p))
+        if n_k != n:
+            b, c = F.pad(b, (0, n_k - n)), F.pad(c, (0, n_k - n))
+        x, b, c = _aligned(x), _aligned(b), _aligned(c)
     lib = load_library()
-    shared = lib.ssd_scan_shared_bytes(chunk, n, p)
-    if shared > SHARED_LIMIT_BYTES:
-        raise ValueError(f"chunk {chunk}, N {n}, P {p} need {shared} bytes "
-                         f"of shared memory, over the card's "
-                         f"{SHARED_LIMIT_BYTES}")
+    kernel_bytes = lib.ssd_scan_shared_bytes(chunk, n_k, p_k, k,
+                                             _DTYPES[x.dtype])
+    if kernel_bytes != shared:
+        raise RuntimeError(f"the kernel counts {kernel_bytes} bytes of "
+                           f"shared memory at chunk {chunk}, N {n_k}, P "
+                           f"{p_k}, k {k}; plan counts {shared}")
     dt32 = dt.to(torch.float32).contiguous()
     a32 = a.to(torch.float32).contiguous()
-    y = torch.empty_like(x)
+    y = x.new_empty((bsz, h, s, p_k))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt32.data_ptr(), a32.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), bsz, h, g, s, chunk, n, p,
+        c.data_ptr(), y.data_ptr(), bsz, h, g, s, chunk, n_k, p_k, k,
         _DTYPES[x.dtype], stream)
     LIBRARY.check(err)
     launches += 1
-    return y
+    return y[..., :p] if p_k != p else y

@@ -3,16 +3,25 @@
 On the CPU: ``noc_step.cluster_plan`` (the cluster size and per-CTA shared
 memory of the NoC kernel) against a layout computed by hand, its choice
 on the main path's geometries and its refusals; the share of fan-in reads
-that cross CTAs; and the kernel's refusal of geometries its narrowed rows
-would not hold exactly.
+that cross CTAs; the kernel's refusal of geometries its narrowed rows
+would not hold exactly; ``ssd_scan.plan`` (blocks per (batch, head),
+threads and shared memory of the SSD kernels) against a layout computed
+by hand, its choice at Zamba2's shape and at a large batch, mamba2-1.3b's
+d_state 128 fitting, and its refusals; and the bfloat16 SSD kernel's
+arithmetic emulated in plain PyTorch, which shows why it splits the
+operands it computes into bf16 hi + lo halves.
 
 On the card (``cuda``-marked, skipped here): the bfloat16 attention
 kernel on the tensor cores against its plain version at every head width,
 causal, windowed, GQA, with queries at the kv tail and on a query tile
-that the sequence fills only in part; and every ``noc_step`` mode split
-over clusters of more than one CTA, which the main path picks only at
-1024 PEs, against the twin.  This file imports no jax, so on the card it
-runs without the suite's conftest::
+that the sequence fills only in part; the bfloat16 SSD kernel on the
+tensor cores against its plain version over the CPU tests' matrix, on
+chunks and widths that do not tile by 16 (through ``ops.ssd`` too), in
+the fast- and slow-decay regimes, at d_state 128 and at every split of
+P the planner allows; and every ``noc_step`` mode split over clusters of
+more than one CTA, which the main path picks only at 1024 PEs, against
+the twin.  This file imports no jax, so on the card it runs without the
+suite's conftest::
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda \\
         tests/test_torch_kernels_hopper.py
@@ -27,6 +36,8 @@ from repro_torch.core import sim
 from repro_torch.core.spec import TopologySpec
 from repro_torch.kernels import flash_attention as t_flash
 from repro_torch.kernels import noc_step as t_noc
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ssd_scan as t_ssd
 
 torch.set_num_threads(1)
 
@@ -157,6 +168,152 @@ def test_run_fused_refuses_what_the_narrow_rows_cannot_hold():
 
 
 # ---------------------------------------------------------------------------
+# ssd_scan.plan and the bfloat16 kernel's arithmetic
+# ---------------------------------------------------------------------------
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def test_ssd_plan_matches_a_hand_computed_layout():
+    # Zamba2: chunk 128, N = P = 64.  bf16 rows padded by 8 elements:
+    # x [2][128][72], b and c [2][128][72] each, the state's hi and lo
+    # halves [64][72] each; float32 dt [2][128], cum/exp/w [3][128].
+    one = (2 * 128 * 72 * 2 + 2 * 2 * 128 * 72 * 2 + 2 * 64 * 72 * 2
+           + 2 * 128 * 4 + 3 * 128 * 4)
+    assert one == 131_584
+    assert t_ssd.shared_bytes(128, 64, 64, 1, BF16) == one
+    # k = 2: 32 columns a block, x and the state rows 40 wide
+    assert t_ssd.shared_bytes(128, 64, 64, 2, BF16) == one - (
+        2 * 128 * 32 * 2 + 2 * 64 * 32 * 2) == 107_008
+    # a chunk of 40 pads to 48 rows; N 24 pads to 32 state rows; 8 columns
+    # of a block pad to 16
+    assert t_ssd.shared_bytes(40, 24, 16, 2, BF16) == (
+        2 * 48 * 24 * 2 + 2 * 2 * 48 * 40 * 2 + 2 * 32 * 24 * 2
+        + 2 * 48 * 4 + 3 * 48 * 4) == 24_000
+    # float32: the scalar kernel's float32 tiles, one block per (b, h)
+    assert t_ssd.shared_bytes(128, 64, 64, 1, F32) == 4 * (
+        64 * 64 + 128 * 64 + 128 * 65 + 128 * 64 + 128 * 129 + 3 * 128)
+    assert t_ssd.plan(128, 128, 64, 64, F32) == (
+        1, t_ssd.SCALAR_THREADS, 182_784)
+    # splits the kernel does not take: columns not in slices of 8..64
+    for k in (3, 16):
+        assert t_ssd.shared_bytes(128, 64, 64, k, BF16) is None
+    assert t_ssd.shared_bytes(128, 64, 128, 1, BF16) is None
+    assert t_ssd.shared_bytes(128, 64, 64, 2, F32) is None
+    assert t_ssd.splits(128, 64, 64, BF16) == [1, 2, 4, 8]
+    # P and N that are not multiples of 8 are padded: P 20 -> 24 (k 1, 3)
+    assert t_ssd.splits(32, 12, 20, BF16) == [1, 3]
+
+
+def test_ssd_plan_on_zamba2_and_a_large_batch():
+    # Zamba2 scoring: batch 2 x 64 heads, chunk 128, N = P = 64
+    # (128 pairs, one block each, cover 97 % of the 132 SMs)
+    assert t_ssd.plan(128, 128, 64, 64, BF16) == (
+        1, t_ssd.TC_THREADS, 131_584)
+    # a large batch: one block per pair; a single sequence of mamba2-1.3b
+    # (64 heads): two; 8 pairs: the largest split
+    assert t_ssd.plan(32 * 64, 128, 64, 64, BF16)[0] == 1
+    assert t_ssd.plan(64, 128, 128, 64, BF16)[0] == 2
+    assert t_ssd.plan(8, 128, 128, 64, BF16)[0] == 8
+    assert t_ssd.plan(128, 128, 64, 64, BF16, split=8) == (
+        8, t_ssd.TC_THREADS, t_ssd.shared_bytes(128, 64, 64, 8, BF16))
+
+
+def test_ssd_plan_fits_d_state_128():
+    # mamba2-1.3b (src/repro/configs/mamba2_1_3b.py): N 128, P 64, chunk
+    # 128, which the float32 kernel refuses
+    k, _, nbytes = t_ssd.plan(64, 128, 128, 64, BF16)
+    assert nbytes <= t_ssd.SHARED_LIMIT_BYTES
+    assert t_ssd.shared_bytes(128, 128, 64, 1, BF16) == 215_552
+    assert t_ssd.splits(128, 128, 64, BF16) == [1, 2, 4, 8]
+    with pytest.raises(ValueError, match="shared memory"):
+        t_ssd.plan(64, 128, 128, 64, F32)
+
+
+def test_ssd_plan_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="every split"):
+        t_ssd.plan(128, 512, 256, 64, BF16)
+    with pytest.raises(ValueError, match="split 3"):
+        t_ssd.plan(128, 128, 64, 64, BF16, split=3)
+    with pytest.raises(ValueError, match="split 2"):
+        t_ssd.plan(128, 128, 64, 64, F32, split=2)
+    # N past the kernel's 256 state rows fits no split
+    assert t_ssd.splits(16, 264, 16, BF16) == []
+
+
+def _ssd_inputs(case, seed=0):
+    """x, b, c standard normal, dt = softplus(N(0,1) - 1) and a =
+    -exp(N(0,1)/2) in float32, as chip_smoke.py makes them."""
+    b, h, g, s, p, n, _ = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, s, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, h, s)) - 1.0))
+    a = -np.exp(rng.standard_normal(h) * 0.5)
+    bb = rng.standard_normal((b, g, s, n)).astype(np.float32)
+    cc = rng.standard_normal((b, g, s, n)).astype(np.float32)
+    return (torch.from_numpy(x), torch.from_numpy(dt.astype(np.float32)),
+            torch.from_numpy(a.astype(np.float32)), torch.from_numpy(bb),
+            torch.from_numpy(cc))
+
+
+def _truncated(v):
+    """v with the lower 16 bits of each float32 cleared: a bf16 value."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _tc_arithmetic(x, dt, a, b, c, chunk, split):
+    """The bfloat16 kernel's arithmetic in plain PyTorch: exact products
+    of bf16 operands summed in float32, with the operands the kernel
+    computes (M, the carried state, b * w) rounded to bf16 once
+    (``split`` False) or as the kernel takes them (True): hi + lo bf16
+    halves, each the upper 16 bits of a float32."""
+    def operand(v):
+        if not split:
+            return v.to(BF16).float()
+        hi = _truncated(v)
+        return hi + _truncated(v - hi)
+    bsz, h, s, p = x.shape
+    rep = h // b.shape[1]
+    bb = b.repeat_interleave(rep, 1).float()
+    cc = c.repeat_interleave(rep, 1).float()
+    xf, dtf = x.float(), dt.float()
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    state = torch.zeros(bsz, h, b.shape[3], p)
+    ys = []
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        cum = torch.cumsum(dtf[:, :, sl] * a[None, :, None], -1)
+        xc, dc, bc, ccx = xf[:, :, sl], dtf[:, :, sl], bb[:, :, sl], \
+            cc[:, :, sl]
+        m = torch.where(tri, (ccx @ bc.transpose(-1, -2))
+                        * torch.exp(cum[..., :, None] - cum[..., None, :])
+                        * dc[..., None, :], 0.0)
+        y = torch.exp(cum)[..., None] * (ccx @ operand(state))
+        ys.append(y + operand(m) @ xc)
+        w = torch.exp(cum[..., -1:] - cum) * dc
+        state = torch.exp(cum[..., -1])[..., None, None] * state + \
+            operand(bc * w[..., None]).transpose(-1, -2) @ xc
+    return torch.cat(ys, 2).to(BF16)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["hi+lo", "one bf16"])
+def test_ssd_bf16_arithmetic_needs_split_operands(split):
+    """At Zamba2's widths (N = P = 64, chunk 128) over 8 chunks, the
+    kernel's scheme holds the 2e-2 tolerance against the plain version
+    with room to spare, while one bf16 rounding of the computed operands
+    does not: outputs are sums of terms far larger than themselves."""
+    case = (1, 4, 1, 1024, 64, 64, 128)
+    x, dt, a, b, c = _ssd_inputs(case, seed=8)
+    x, b, c = x.to(BF16), b.to(BF16), c.to(BF16)
+    want = t_ssd.plain(x, dt, a, b, c, chunk=128).float()
+    got = _tc_arithmetic(x, dt, a, b, c, 128, split).float()
+    worst = float(((got - want).abs() / (2e-2 + 2e-2 * want.abs())).max())
+    if split:
+        assert worst < 0.5, worst
+    else:
+        assert worst > 1.5, worst
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 FLASH_BF16_CASES = [
@@ -247,3 +404,121 @@ def test_noc_step_at_1024_pes_matches_twin(card):
     want = t_noc.run_plain(geom, inj, dst, **opts)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+# The CPU tests' SSD matrix (tests/test_torch_attention_ssd.py, after the
+# reference's tests/test_kernels.py): (B, H, G, S, P, N, chunk).
+SSD_CASES = [
+    (1, 2, 1, 64, 32, 16, 16),
+    (2, 4, 2, 128, 32, 16, 32),
+    (1, 4, 1, 128, 64, 32, 64),
+    (1, 8, 8, 64, 16, 16, 16),
+    (1, 2, 1, 128, 32, 16, 128),
+]
+
+
+def _ssd_on(card, case, seed=0, dtype=BF16):
+    x, dt, a, b, c = _ssd_inputs(case, seed)
+    return (x.to(card, dtype), dt.to(card), a.to(card), b.to(card, dtype),
+            c.to(card, dtype))
+
+
+def _ssd_close(got, want):
+    # 2e-2: outputs rounded to bfloat16 on both sides (chip_smoke.py's TOL)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_bf16_tensor_cores_match_plain(card, case):
+    ops = _ssd_on(card, case, seed=case[3] + case[5])
+    t_ssd.reset_launches()
+    got = t_ssd.ssd_scan(*ops, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert t_ssd.launches == 1
+    _ssd_close(got, t_ssd.plain(*ops, chunk=case[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,chunk", [(40, 16), (8, 16), (70, 32), (80, 40)])
+def test_ssd_bf16_chunks_that_do_not_tile_by_16(card, s, chunk):
+    """Through ``ops.ssd`` (right padding, or the chunk cut to a short
+    sequence: S 8 runs one chunk of 8), and a chunk of 40 called
+    directly."""
+    case = (2, 4, 1, s, 16, 16, chunk)
+    ops = _ssd_on(card, case, seed=4)
+    want = t_ops.ssd(*ops, chunk=chunk, impl="torch")
+    t_ssd.reset_launches()
+    got = t_ops.ssd(*ops, chunk=chunk, impl="cuda")
+    assert t_ssd.launches == 1 and got.shape == ops[0].shape
+    _ssd_close(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_widths_that_do_not_tile_by_8(card):
+    """P 20 and N 12 are zero-padded to 24 and 16; a misaligned x is
+    copied to 16-byte alignment."""
+    case = (1, 4, 2, 96, 20, 12, 32)
+    x, dt, a, b, c = _ssd_on(card, case, seed=5)
+    want = t_ssd.plain(x, dt, a, b, c, chunk=32)
+    _ssd_close(t_ssd.ssd_scan(x, dt, a, b, c, chunk=32), want)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+    xs = shifted[1:].view(x.shape)
+    xs.copy_(x)
+    _ssd_close(t_ssd.ssd_scan(xs, dt, a, b, c, chunk=32), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["fast_decay", "slow_decay"])
+def test_ssd_bf16_decay_extremes(card, regime):
+    """The regimes of tests/test_torch_attention_ssd.py: exp(cum)
+    underflows within a chunk and exp(cum_t - cum_u) overflows above the
+    diagonal (selected away), or the state barely forgets."""
+    case = (1, 4, 2, 64, 16, 16, 32)
+    rng = np.random.default_rng(3)
+    log_a_scale, dt_shift = (2.5, 3.0) if regime == "fast_decay" \
+        else (0.1, -6.0)
+    x = rng.standard_normal((1, 4, 64, 16)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((1, 4, 64)) + dt_shift))
+    a = -np.exp(rng.standard_normal(4) * log_a_scale)
+    if regime == "slow_decay":
+        a = a * 1e-3
+    b, c = (rng.standard_normal((1, 2, 64, 16)).astype(np.float32)
+            for _ in range(2))
+    ops = (torch.from_numpy(x).to(card, BF16),
+           torch.from_numpy(dt.astype(np.float32)).to(card),
+           torch.from_numpy(a.astype(np.float32)).to(card),
+           torch.from_numpy(b).to(card, BF16),
+           torch.from_numpy(c).to(card, BF16))
+    got = t_ssd.ssd_scan(*ops, chunk=case[-1])
+    _ssd_close(got, t_ssd.plain(*ops, chunk=case[-1]))
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_d_state_128(card):
+    case = (1, 8, 1, 512, 64, 128, 128)  # mamba2-1.3b's N, P and chunk
+    ops = _ssd_on(card, case, seed=6)
+    _ssd_close(t_ssd.ssd_scan(*ops, chunk=128),
+               t_ssd.plain(*ops, chunk=128))
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_every_split_matches_plain(card):
+    case = (1, 4, 1, 1024, 64, 64, 128)  # Zamba2's N, P and chunk
+    ops = _ssd_on(card, case, seed=7)
+    want = t_ssd.plain(*ops, chunk=128)
+    ks = t_ssd.splits(128, 64, 64, BF16)
+    assert ks == [1, 2, 4, 8]
+    for k in ks:
+        _ssd_close(t_ssd.ssd_scan(*ops, chunk=128, split=k), want)
+
+
+@pytest.mark.cuda
+def test_ssd_float32_keeps_the_scalar_kernel(card):
+    case = SSD_CASES[2]
+    ops = _ssd_on(card, case, seed=9, dtype=F32)
+    got = t_ssd.ssd_scan(*ops, chunk=case[-1])
+    torch.testing.assert_close(got, t_ssd.plain(*ops, chunk=case[-1]),
+                               atol=3e-4, rtol=3e-4)
