@@ -1,12 +1,12 @@
-"""Drive the PyTorch/CUDA port (the NoC simulator and the model zoo's
-Zamba2-1.2B path) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the NoC simulator, its fabric analysis
+and the model zoo's Zamba2-1.2B path) on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Runs from a checkout of the repository, needs one CUDA device and nvcc,
 and imports nothing of jax or of the JAX reference package.  It builds the
 port's three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-each, started together) and runs eleven phases; any failure raises and
+each, started together) and runs twelve phases; any failure raises and
 exits non-zero.
 
 1. Device: the card's name and power limit (``nvidia-smi``), the kernels'
@@ -71,9 +71,22 @@ exits non-zero.
    ``max_seq`` 512, 6 requests with 64-256-token prompts and 16-32 new
    tokens; every request completes, no kernel launches (prefill and
    decode take the plain routes, as in the reference); tokens per second.
+12. The fabric analysis on the card: every certificate of
+   ``tests/data/torch_port_fabric_reference.json`` (the config grid to
+   1024 PEs, two morph overlays, the repaired fabrics, the fault recipe's
+   repaired fabrics at 64-1024 PEs and the BFS-refill cycle) certified
+   with ``device="cuda"`` and held to the JAX reference's as JSON; the
+   certification time at 1024 PEs on the card and on its host; phase 3's
+   grid again behind ``Experiment(verify=True)``, held to the same
+   reference, with the certification's share of the wall clock and a
+   second construction served from the certificate cache;
+   ``measure_repair`` on the fault recipe's repair scenario at 256 and
+   1024 PEs, its legs held to phase 6's reports and its ``certified``
+   block to the reference certificate; the BFS-refill cycle's witness.
 
-Launch counts are zeroed just before each of phases 3, 5, 6, 9 and 11 and
-read just after (by mode for noc_step).  Phases 5 and 6 split their host
+Launch counts are zeroed just before each of phases 3, 5, 6, 9, 11 and
+12's ``verify=True`` grid and ``measure_repair`` runs, and read just
+after (by mode for noc_step).  Phases 5 and 6 split their host
 wall clock into its stages (topology builds, device geometry, streams and
 operands, the kernel, the reachability walk, the rest), phase 9 its
 forward's into the two kernels and the rest, each with its share.  The
@@ -372,8 +385,6 @@ def phase_main_path():
     from repro_torch.kernels import noc_step
 
     exps, ref = main_path_experiments()
-    want = {(p["family"], p["n_pes"], p["pattern"]): p
-            for p in ref["points"]}
     noc_step.reset_launches()
     t0 = time.perf_counter()
     reports = run_experiments(exps)
@@ -384,15 +395,7 @@ def phase_main_path():
            f"launches, {wall:.3f} s host wall clock incl. geometry and "
            f"stream setup [{CARD}]")
     assert launches > 0, "the main path never launched the kernel"
-    for e, r in zip(exps, reports):
-        p = want[(e.topology.family, e.topology.n_pes, e.traffic.kind)]
-        got = {k: getattr(r.sim, k) for k in p
-               if k not in ("family", "n_pes", "pattern")}
-        exp = {k: v for k, v in p.items()
-               if k not in ("family", "n_pes", "pattern")}
-        # `lost` included: the reference's fixpoint leaves residue at
-        # flat_mesh_1024 under bit_reversal/transpose, and so must the port.
-        assert got == exp, (e.topology.name, e.traffic.kind, got, exp)
+    check_main_path(exps, reports, ref)
     say(3, f"all {len(reports)} SimResults equal the reference's "
            f"(jax {ref['jax_version']}) field for field")
     for n in sorted({r.experiment.topology.n_pes for r in reports}):
@@ -412,6 +415,21 @@ def phase_main_path():
                    f" | area {r0.area.lut} LUT | diameter "
                    f"{r0.analytic.diameter}")
     return launches
+
+
+def check_main_path(exps, reports, ref) -> None:
+    """Every report of the main path equals the reference's point."""
+    want = {(p["family"], p["n_pes"], p["pattern"]): p
+            for p in ref["points"]}
+    for e, r in zip(exps, reports):
+        p = want[(e.topology.family, e.topology.n_pes, e.traffic.kind)]
+        got = {k: getattr(r.sim, k) for k in p
+               if k not in ("family", "n_pes", "pattern")}
+        exp = {k: v for k, v in p.items()
+               if k not in ("family", "n_pes", "pattern")}
+        # `lost` included: the reference's fixpoint leaves residue at
+        # flat_mesh_1024 under bit_reversal/transpose, and so must the port.
+        assert got == exp, (e.topology.name, e.traffic.kind, got, exp)
 
 
 def bound_ms(geom, batch: int, cycles: int, passes, n_phases: int = 0,
@@ -741,9 +759,10 @@ def fault_grid(ref, sizes, backend: str):
     return tags, exps
 
 
-def phase_faults(ref) -> tuple[int, float, list]:
+def phase_faults(ref) -> tuple[int, float, list, dict]:
     """Runtime faults at 256 and 1024 PEs.  Returns (fault-mode launches
-    of the path, largest kernel-vs-twin difference, the experiments)."""
+    of the path, largest kernel-vs-twin difference, the experiments, the
+    reports by (family, n, mode, dead links, fault seed))."""
     from repro_torch.core import sim
     from repro_torch.core.experiment import run_experiments
     from repro_torch.faults import FaultSpec, LinkFault, sample_faults
@@ -808,7 +827,7 @@ def phase_faults(ref) -> tuple[int, float, list]:
     say(6, f"kernel == twin on the card over the {len(k64)} points of the "
            f"64-PE recipe (which equal the reference too) and a transient "
            f"fault with onsets 250/400 (dropped {a.dropped})")
-    return launches, err, exps
+    return launches, err, exps, {t[:5]: r for t, r in zip(tags, reports)}
 
 
 # ---------------------------------------------------------------------------
@@ -1360,6 +1379,191 @@ def phase_serving(cfg, params):
     return n_tok / wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the fabric analysis on the card.
+# ---------------------------------------------------------------------------
+FABRIC_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                "torch_port_fabric_reference.json")
+# measure_repair's sizes: phase 6's.
+REPAIR_SIZES = (256, 1024)
+
+
+def cert_dict(cert) -> dict:
+    """A certificate as the reference file records it."""
+    d = cert.to_dict()
+    del d["elapsed_ms"]
+    return d
+
+
+def certified_block(cert) -> dict:
+    """``measure_repair``'s ``certified`` block of a certificate."""
+    return {"ok": cert.ok,
+            "deadlock_free": cert.prop("deadlock_free").ok,
+            "route_liveness": cert.prop("route_liveness").ok,
+            "witness": [dict(w) for p in cert.failures()
+                        for w in p.witness[:1]]}
+
+
+def certify_ms(spec, device: str, reps: int) -> list[float]:
+    """Host ms of ``reps`` uncached certifications of ``spec`` on
+    ``device`` (each ends with its results on the host)."""
+    from repro_torch.analysis import fabric
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fabric.certify(spec, use_cache=False, device=device)
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def phase_analysis(fault_ref, fault_reports) -> None:
+    """The fabric analysis on the card: every reference certificate, the
+    main path behind ``verify=True``, ``measure_repair`` and the BFS-refill
+    cycle witness."""
+    from repro_torch.analysis import fabric
+    from repro_torch.core.experiment import Budget, run_experiments
+    from repro_torch.core.spec import TopologySpec
+    from repro_torch.faults import (measure_repair, sample_faults,
+                                    suggest_repair_morph)
+    from repro_torch.kernels import noc_step
+
+    t_phase = time.perf_counter()
+    with open(FABRIC_REFERENCE) as f:
+        ref = json.load(f)
+    certs = ref["certificates"]
+    t0 = time.perf_counter()
+    for e in certs:
+        want = e["certificate"]
+        got = fabric.certify(TopologySpec.from_dict(want["spec"]),
+                             use_cache=False, device="cuda")
+        assert cert_dict(got) == want, (e["label"], want["topology"])
+    labels = {}
+    for e in certs:
+        labels[e["label"]] = labels.get(e["label"], 0) + 1
+    say(12, f"{len(certs)} certificates certified on the card in "
+            f"{time.perf_counter() - t0:.3f} s ({labels}) equal the "
+            f"reference's (jax {ref['jax_version']}) as JSON, witnesses "
+            f"included; {sum(not e['certificate']['ok'] for e in certs)} "
+            f"rejections among them")
+    for e in certs:
+        want = e["certificate"]
+        if e["label"] != "config" or want["n_pes"] != 1024:
+            continue
+        spec = TopologySpec.from_dict(want["spec"])
+        card = certify_ms(spec, "cuda", 3)
+        host = certify_ms(spec, "cpu", 1)
+        say(12, f"certify {want['topology']} ({want['n_pairs']} pairs, "
+                f"{want['n_edges']} edges): "
+                f"{' / '.join(f'{t:.1f}' for t in card)} ms on the card, "
+                f"{host[0]:.1f} ms on its host with device='cpu' [{CARD}]")
+
+    # The main path behind the pre-flight.
+    exps, main_ref = main_path_experiments()
+    specs = {e.topology for e in exps}
+    fabric.clear_certificate_cache()
+    noc_step.reset_launches()
+    t0 = time.perf_counter()
+    verified = [dataclasses.replace(e, verify=True) for e in exps]
+    t_cert = time.perf_counter() - t0
+    reports = run_experiments(verified)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = noc_step.mode_launches[noc_step.STATISTICAL]
+    assert launches > 0, "the verified main path never launched the kernel"
+    check_main_path(verified, reports, main_ref)
+    cached = {s: fabric.certify(s) for s in specs}
+    assert fabric.certificate_cache_size() == len(specs)
+    assert all(c.ok for c in cached.values())
+    t1 = time.perf_counter()
+    again = [dataclasses.replace(e, verify=True) for e in exps]
+    t_again = time.perf_counter() - t1
+    assert len(again) == len(exps)
+    assert fabric.certificate_cache_size() == len(specs)
+    assert all(fabric.certify(s) is c for s, c in cached.items())
+    say(12, f"figs15_17 grid with Experiment(verify=True): {len(exps)} "
+            f"points, {len(specs)} fabrics certified on the card in "
+            f"{t_cert:.3f} s = {t_cert / wall:.1%} of the {wall:.3f} s host "
+            f"wall clock; {launches} noc_step launches; every report equals "
+            f"the reference's field for field; a second verify=True "
+            f"construction of all points took {t_again * 1e3:.3f} ms "
+            f"(cache hits: still {len(specs)} certificates, the same "
+            f"objects) [{CARD}]")
+
+    # measure_repair on the fault recipe's repair scenario.
+    r = fault_ref["recipes"]["fault_tolerance"]
+    depth = fault_ref["recipes"]["src_queue_depth"]
+    rc, rs = r["repair_count"], r["seeds"][0]
+    want_certs = [e["certificate"] for e in certs
+                  if e["label"] == "fault_recipe_repair"]
+    noc_step.reset_launches()
+    t0 = time.perf_counter()
+    outs = {}
+    for n in REPAIR_SIZES:
+        budget = Budget(cycles=r["cycles"][str(n)], warmup=0)
+        for fam in ("ring_mesh", "flat_mesh"):
+            spec = _spec(fam, n, depth)
+            flt = sample_faults(spec.build(), n_dead_links=rc, seed=rs)
+            outs[(fam, n)] = (spec, flt, measure_repair(
+                spec, flt, inj_rate=r["inj_rate"][str(n)], budget=budget,
+                seed=r["seed"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(noc_step.mode_launches)
+    say(12, f"measure_repair at {REPAIR_SIZES} PEs: launches by mode "
+            f"{launches}, {wall:.3f} s host wall clock [{CARD}]")
+    assert launches[noc_step.FAULTS] > 0, "no fault-mode launch"
+    for (fam, n), (spec, flt, out) in outs.items():
+        legs = {"healthy": fault_reports[(fam, n, "healthy", 0, 0)],
+                "faulted": fault_reports[(fam, n, "faulted", rc, rs)],
+                "repaired": fault_reports[(fam, n, "repaired", rc, rs)]}
+        healthy, faulted, repaired = legs.values()
+        want = {
+            "scenario": flt.to_dict(),
+            "delivered_fraction": {k: round(v.delivered_fraction, 4)
+                                   for k, v in legs.items()},
+            "reachability": {k: round(v.reachability, 4)
+                             for k, v in legs.items()},
+            "avg_latency": {k: round(v.sim.avg_latency, 2)
+                            for k, v in legs.items()},
+            "latency_inflation": {
+                "faulted": round(faulted.latency_inflation(healthy), 4),
+                "repaired": round(repaired.latency_inflation(healthy), 4)},
+            "repair_gain": round(repaired.delivered_fraction
+                                 - faulted.delivered_fraction, 4)}
+        got = {k: v for k, v in out.items() if k != "certified"}
+        assert got == want, (fam, n, got, want)
+        repaired_spec = suggest_repair_morph(spec, flt).to_dict()
+        cert = next(c for c in want_certs if c["spec"] == repaired_spec)
+        block = certified_block(fabric.FabricCertificate.from_dict(cert))
+        assert out["certified"] == block, (fam, n, out["certified"])
+        say(12, f"measure_repair {fam}_{n} ({rc} dead links, seed {rs}): "
+                f"delivered fraction {out['delivered_fraction']}, repair "
+                f"gain {out['repair_gain']}, certified "
+                f"{out['certified']['ok']}"
+                + (f" (witness {out['certified']['witness'][0]['kind']})"
+                   if out['certified']['witness'] else "")
+                + " == phase 6's legs and the reference certificate")
+
+    # The BFS-refill cycle, caught on the card.
+    b = ref["recipe"]["bfs_refill_cycle"]
+    want = next(e["certificate"] for e in certs
+                if e["label"] == "bfs_refill_cycle")
+    base = TopologySpec(b["family"], b["n_pes"])
+    spec = dataclasses.replace(base, faults=sample_faults(
+        base.build(), n_dead_links=b["n_dead_links"], seed=b["seed"]))
+    assert spec.to_dict() == want["spec"]
+    cert = fabric.certify(spec, use_cache=False, device="cuda")
+    witness = cert.prop("deadlock_free").witness[0]["queues"]
+    ref_witness = next(p for p in want["properties"]
+                       if p["name"] == "deadlock_free")["witness"][0]
+    assert not cert.ok and witness == ref_witness["queues"]
+    say(12, f"BFS-refill cycle: {spec.name} with {b['n_dead_links']} dead "
+            f"links (sample_faults seed {b['seed']}) REJECTED on the card; "
+            f"queue-cycle witness {witness} == the reference's")
+    say(12, f"phase 12 took {time.perf_counter() - t_phase:.3f} s host "
+            f"wall clock [{CARD}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1379,7 +1583,8 @@ def main() -> int:
     with open(TRACE_FAULT_REFERENCE) as f:
         ref = json.load(f)
     launches[noc_step.TRACE], trace_err, trace_exps = phase_trace(ref)
-    launches[noc_step.FAULTS], fault_err, fault_exps = phase_faults(ref)
+    launches[noc_step.FAULTS], fault_err, fault_exps, fault_reports = (
+        phase_faults(ref))
     timed = {}
     for mode, exps, e in ((noc_step.TRACE, trace_exps, trace_err),
                           (noc_step.FAULTS, fault_exps, fault_err)):
@@ -1398,7 +1603,8 @@ def main() -> int:
     launches.update(model_launches)
     phase_anchor()
     phase_serving(cfg, params)
-    say(11, f"whole run {time.perf_counter() - t0:.1f} s")
+    phase_analysis(ref, fault_reports)
+    say(12, f"whole run {time.perf_counter() - t0:.1f} s")
     names = (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS,
              "flash_attention", "ssd_scan")
     record = {"kernels": [{

@@ -3,7 +3,7 @@ and the model architectures.
 
 ``get(name)`` resolves an architecture id of the reference's registry.
 Only ``zamba2-1.2b`` is ported so far; the other ids raise, naming the
-slice that brings them (ROADMAP Queue 1 item 9).
+part of the model zoo they wait for.
 """
 from __future__ import annotations
 
@@ -29,9 +29,9 @@ def get(name: str):
         raise KeyError(f"unknown arch {name!r}; available: {list(ARCHS)}")
     if ARCHS[name] is None:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet: ROADMAP Queue 1 item 9 "
-            "(the rest of the model zoo: MoE, cross-attention, encoders "
-            "and the other configurations)")
+            f"arch {name!r} is not ported yet: it needs the rest of the "
+            "model zoo (the dense attn kind, MoE, cross-attention, "
+            "encoders and the other configurations)")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
     return mod.CONFIG
 

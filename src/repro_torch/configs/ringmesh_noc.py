@@ -1,9 +1,9 @@
 """The paper's own artifact: Ring-Mesh NoC experiment configuration
 (§7 experimental grid), expressed against the port's declarative
 experiment API (``core.spec`` / ``core.traffic`` / ``core.experiment``).
-``chip_smoke.py`` drives it on the card.  The resilience and trace grids
-of the reference config need runtime faults and trace replay, later
-slices of the port (ROADMAP Queue 1 items 6-7)."""
+``chip_smoke.py`` drives it on the card.  The reference config's
+resilience and trace grids (``resilience_experiments``,
+``trace_experiments``) are not in the port's config yet."""
 import dataclasses
 
 from repro_torch.core import traffic

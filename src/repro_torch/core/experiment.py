@@ -36,10 +36,6 @@ from repro_torch.core import analytic, area, power, sim, sweep, traffic
 from repro_torch.core.spec import TopologySpec
 from repro_torch.faults.spec import FaultSpec
 
-_UNPORTED_VERIFY = ("Experiment(verify=True) needs the static fabric "
-                    "certification, which is not ported yet: ROADMAP "
-                    "Queue 1 item 8 (analysis slice)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Budget:
@@ -110,7 +106,11 @@ class Experiment:
     # geometry — a resilience grid still batches, DESIGN.md §13).  Faults
     # *repaired into* the fabric belong on the TopologySpec instead.
     faults: Optional[FaultSpec] = None
-    # Static certification pre-flight (DESIGN.md §14): a later slice.
+    # Opt-in static certification pre-flight (DESIGN.md §14): construction
+    # proves the built fabric deadlock-free and route-live
+    # (``analysis.fabric.require_certified``, on the budget's device)
+    # before any cycle is simulated.  Certificates are cached on the spec,
+    # so a verified grid pays the proof once per geometry.
     verify: bool = False
 
     def __post_init__(self):
@@ -128,7 +128,9 @@ class Experiment:
             # not as an opaque gather error inside a batched dispatch.
             self.faults.validate_against(self.topology.build())
         if self.verify:
-            raise NotImplementedError(_UNPORTED_VERIFY)
+            from repro_torch.analysis import fabric
+            fabric.require_certified(self.topology,
+                                     device=self.budget.device or "cuda")
         self.sim_config()  # surface budget/traffic conflicts eagerly too
 
     # -- execution ----------------------------------------------------------

@@ -160,13 +160,14 @@ class TopologySpec:
     def clear_build_cache() -> None:
         _BUILD_CACHE.clear()
 
-    def certify(self):
-        """Static certification (DESIGN.md §14) belongs to the analysis
-        slice of the port, which has not landed yet (ROADMAP Queue 1
-        item 8)."""
-        raise NotImplementedError(
-            "TopologySpec.certify is not ported yet: the fabric analysis "
-            "is ROADMAP Queue 1 item 8 (analysis slice)")
+    def certify(self, *, device="cuda"):
+        """Static certification of this spec's built fabric (deadlock
+        freedom, route liveness, table consistency — DESIGN.md §14), its
+        walks on ``device`` (the card unless the caller asks for the
+        CPU); returns the ``analysis.fabric.FabricCertificate``, memoized
+        on this spec alongside the geometry."""
+        from repro_torch.analysis import fabric  # lazy: analysis imports spec
+        return fabric.certify(self, device=device)
 
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:

@@ -25,9 +25,6 @@ from repro_torch.core import sim
 from repro_torch.core import topology as topo_mod
 from repro_torch.core import traffic
 
-_UNPORTED_VERIFY = ("static certification (verify=True) is not ported "
-                    "yet: ROADMAP Queue 1 item 8 (analysis slice)")
-
 
 def _grouped(topo: topo_mod.Topology,
              cfgs: Sequence[sim.SimConfig]) -> dict[tuple, list[int]]:
@@ -45,9 +42,18 @@ def sweep(topo: topo_mod.Topology,
           cfgs: Sequence[sim.SimConfig],
           verify: bool = False) -> list[sim.SimResult]:
     """Run every config on ``topo``, one batch per static key; results
-    return in the order of ``cfgs``."""
+    return in the order of ``cfgs``.
+
+    ``verify=True`` statically certifies the fabric first (deadlock
+    freedom + route liveness, ``analysis.fabric``, on the device of the
+    first config; ``"cuda"`` when there is none) and raises
+    ``CertificationError`` before launching anything — the pre-flight for
+    long grids on morphed/repaired fabrics (DESIGN.md §14).
+    """
     if verify:
-        raise NotImplementedError(_UNPORTED_VERIFY)
+        from repro_torch.analysis import fabric
+        fabric.require_certified(
+            topo, device=cfgs[0].torch_device() if cfgs else "cuda")
     out: list[Optional[sim.SimResult]] = [None] * len(cfgs)
     for idxs in _grouped(topo, cfgs).values():
         results, _ = sim.run_batch(topo, [cfgs[i] for i in idxs])
@@ -101,5 +107,6 @@ def grid(inj_rates: Iterable[float] = (0.25,),
 
 def sweep_grid(topo: topo_mod.Topology, verify: bool = False,
                **grid_kwargs) -> list[sim.SimResult]:
-    """Convenience: build a ``grid(**grid_kwargs)`` and ``sweep`` it."""
+    """Convenience: build a ``grid(**grid_kwargs)`` and ``sweep`` it
+    (``verify=True`` runs the static certification pre-flight first)."""
     return sweep(topo, grid(**grid_kwargs), verify=verify)

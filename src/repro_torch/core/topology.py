@@ -155,12 +155,17 @@ class Topology:
             seen[int(nxt)] = len(seen)
             l = nxt
 
-    def check_deadlock_free(self) -> bool:
-        """The Dally-Seitz acyclicity check lives in the fabric analysis,
-        which the port has not ported yet (ROADMAP Queue 1 item 8)."""
-        raise NotImplementedError(
-            "Topology.check_deadlock_free is not ported yet: the fabric "
-            "analysis is ROADMAP Queue 1 item 8 (analysis slice)")
+    def check_deadlock_free(self, *, device="cuda") -> bool:
+        """Verify the *realizable* queue-dependency graph is acyclic — the
+        Dally-Seitz condition.  Edges are collected by walking every
+        (source, destination) route on ``device``, so only dependencies an
+        actual flit can exercise are included (the full table contains
+        don't-care entries for (queue, dest) pairs no flit ever occupies).
+
+        Thin shim over ``analysis.fabric``; use ``fabric.certify``
+        directly for the full property set and cycle witnesses."""
+        from repro_torch.analysis import fabric
+        return fabric.dependency_cycle(self, device=device) is None
 
 
 class _Builder:

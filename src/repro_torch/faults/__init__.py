@@ -4,13 +4,14 @@
 ``spec``   — frozen, JSON-able ``FaultSpec`` / ``LinkFault``, their
              lowering to the simulator's per-queue drop entries, and the
              seeded ``sample_faults`` generator.
-``repair`` — ``suggest_repair_morph`` / ``healthy_twin`` /
-             ``merge_faults`` / ``split_faults``: the legs of the paper's
-             §5.1 fault-bypass comparison.  ``measure_repair`` needs the
-             fabric analysis (ROADMAP Queue 1 item 8) and raises.
+``repair`` — ``suggest_repair_morph`` / ``measure_repair``: the paper's
+             §5.1 fault-bypass claim, quantified (delivered fraction and
+             latency before vs. after re-morphing around the faults,
+             with a static certificate of the repaired fabric).
 
-``repair`` is imported lazily: it imports ``core.spec``, which imports
-``faults.spec`` — an eager import here would close that cycle.
+``repair`` is imported lazily: it pulls in ``core.experiment``, which
+imports ``core.spec``, which imports ``faults.spec`` — an eager import
+here would close that cycle.
 """
 from repro_torch.faults.spec import (FABRIC_KINDS, FaultSpec, LinkFault,
                                      fabric_channels, link_between,

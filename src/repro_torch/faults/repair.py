@@ -10,11 +10,11 @@ ones over the surviving fabric), which subsumes the 8 x 2-bit per-switch
 states of the wire protocol.
 
 ``suggest_repair_morph(spec, faults)`` returns the repaired spec;
-``healthy_twin``, ``merge_faults`` and ``split_faults`` build the legs of
-a degradation comparison.  ``measure_repair`` — the healthy /
-faulted-unrepaired / repaired triplet with a static certificate of the
-repaired fabric — needs the fabric analysis, which is not ported yet
-(ROADMAP Queue 1 item 8), and raises ``NotImplementedError``.
+``measure_repair(...)`` runs the healthy / faulted-unrepaired / repaired
+triplet through ``run_experiments`` and reports delivered fraction,
+reachability and latency inflation side by side — degradation *with* the
+repair morph against degradation *without* it — with a static
+certificate of the repaired fabric.
 
 Transient faults (probabilistic flit drops) are behaviour, not
 structure: a repair morph cannot route around a link that is merely
@@ -26,12 +26,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.core.spec import TopologySpec
 from repro_torch.faults.spec import FaultSpec
 
-_UNPORTED_CERTIFY = ("measure_repair certifies the repaired fabric with "
-                     "the static fabric analysis, which is not ported "
-                     "yet: ROADMAP Queue 1 item 8 (analysis slice)")
+# core.experiment imports core.spec, which imports faults.spec — this
+# module sits below faults/__init__'s lazy boundary, so the eager import
+# here is safe (and required: measure_repair runs Experiments).
+from repro_torch.core import experiment as exp_mod
+from repro_torch.core.spec import TopologySpec
 
 
 def merge_faults(a: Optional[FaultSpec],
@@ -78,8 +79,56 @@ def suggest_repair_morph(spec: TopologySpec,
     return dataclasses.replace(spec, faults=dead)
 
 
-def measure_repair(spec: TopologySpec, faults: FaultSpec, **kw) -> dict:
-    """The reference's healthy / faulted / repaired triplet with the
-    repaired fabric's certificate.  Not ported: the certificate needs the
-    fabric analysis (ROADMAP Queue 1 item 8)."""
-    raise NotImplementedError(_UNPORTED_CERTIFY)
+def measure_repair(spec: TopologySpec, faults: FaultSpec, *,
+                   traffic="uniform", inj_rate: float = 0.25,
+                   budget: Optional[exp_mod.Budget] = None,
+                   seed: int = 0) -> dict:
+    """Quantify the §5.1 claim for one scenario: run healthy /
+    faulted-unrepaired / repaired through ``run_experiments`` and join
+    the resilience columns.  ``repair_gain`` is the delivered-fraction
+    improvement the repair morph buys over living with the faults.  The
+    legs and the certificate run on the budget's device (the card unless
+    it says ``device="cpu"``)."""
+    if not isinstance(faults, FaultSpec):
+        raise TypeError("faults must be a FaultSpec")
+    budget = budget or exp_mod.Budget()
+    base = healthy_twin(spec)
+    dead, trans = split_faults(faults)
+    exps = [
+        exp_mod.Experiment(topology=base, traffic=traffic, budget=budget,
+                           inj_rate=inj_rate, seed=seed),
+        exp_mod.Experiment(topology=base, traffic=traffic, budget=budget,
+                           inj_rate=inj_rate, seed=seed, faults=faults),
+        exp_mod.Experiment(topology=suggest_repair_morph(base, dead),
+                           traffic=traffic, budget=budget,
+                           inj_rate=inj_rate, seed=seed, faults=trans),
+    ]
+    healthy, faulted, repaired = exp_mod.run_experiments(exps)
+    legs = {"healthy": healthy, "faulted": faulted, "repaired": repaired}
+    # Static certification of the repaired twin (DESIGN.md §14): the
+    # BFS-refilled route table has no paper proof behind it, and refilled
+    # turns *can* re-introduce dependency cycles — say so in the result
+    # instead of letting the repaired leg deadlock a later long run.
+    from repro_torch.analysis import fabric
+    cert = fabric.certify(exps[2].topology, device=budget.device or "cuda")
+    return {
+        "scenario": faults.to_dict(),
+        "certified": {
+            "ok": cert.ok,
+            "deadlock_free": cert.prop("deadlock_free").ok,
+            "route_liveness": cert.prop("route_liveness").ok,
+            "witness": [dict(w) for p in cert.failures()
+                        for w in p.witness[:1]],
+        },
+        "delivered_fraction": {k: round(r.delivered_fraction, 4)
+                               for k, r in legs.items()},
+        "reachability": {k: round(r.reachability, 4)
+                         for k, r in legs.items()},
+        "avg_latency": {k: round(r.sim.avg_latency, 2)
+                        for k, r in legs.items()},
+        "latency_inflation": {
+            "faulted": round(faulted.latency_inflation(healthy), 4),
+            "repaired": round(repaired.latency_inflation(healthy), 4)},
+        "repair_gain": round(repaired.delivered_fraction
+                             - faulted.delivered_fraction, 4),
+    }

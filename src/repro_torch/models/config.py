@@ -10,9 +10,9 @@ repeats.
 ``attn_impl`` picks the kernels' route: ``"cuda"`` (the default; the
 hand-written kernels, the reference's ``"pallas"``) or ``"torch"`` (the
 plain route, the reference's ``"xla"``).  ``"seq_shard"``, ``act_shard``
-and ``fsdp_gather_dtype`` belong to the distribution slice (ROADMAP Queue 1
-item 10): ``"seq_shard"`` raises; the other two are kept as fields and do
-nothing, as in the reference without a mesh.
+and ``fsdp_gather_dtype`` belong to the distribution layer (``dist/``),
+which the port does not have yet: ``"seq_shard"`` raises; the other two
+are kept as fields and do nothing, as in the reference without a mesh.
 
 Layer kinds:
     attn    — self-attention (GQA / optional sliding window) + MLP
@@ -103,7 +103,8 @@ class ModelConfig:
         if self.attn_impl == "seq_shard":
             raise NotImplementedError(
                 "attn_impl='seq_shard' (sequence-sharded decode attention) "
-                "belongs to the distribution slice, ROADMAP Queue 1 item 10")
+                "needs the distribution layer (dist/decode_attn.py), which "
+                "the port does not have yet")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")

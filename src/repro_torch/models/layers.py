@@ -24,7 +24,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
 
-UNPORTED = "ROADMAP Queue 1 item 9 (the rest of the model zoo)"
+UNPORTED = ("the rest of the model zoo (MoE, cross-attention, encoders) "
+            "is not in the port yet")
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +234,7 @@ def attention_call(cfg: ModelConfig, q, k, v, *, causal, window,
 
 
 def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
-               positions=None, cross=False, memory=None, cache=None,
+               positions=None, cross: bool = False, memory=None, cache=None,
                pos=None):
     """Self-attention block (pre-norm, residual).
 

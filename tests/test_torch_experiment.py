@@ -132,19 +132,29 @@ def test_budget_json_leaves_device_out():
 
 
 def test_unported_experiment_paths_raise():
+    """The paths that raised until the fabric analysis was ported now run:
+    the ``verify=True`` pre-flights of ``Experiment`` and ``sweep``
+    certify on the budget's device (the CPU here) and change nothing
+    else; the default device needs a card and refuses without one."""
     spec = t_spec.TopologySpec("ring_mesh", 16)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        t_exp.Experiment(topology=spec, budget=T_BUDGET, verify=True)
+    exp = t_exp.Experiment(topology=spec, budget=T_BUDGET, verify=True)
+    ref = r_exp.Experiment(topology=r_spec.TopologySpec("ring_mesh", 16),
+                           budget=R_BUDGET, verify=True)
+    d = exp.to_dict()
+    d["budget"]["backend"] = "xla"
+    assert d == ref.to_dict() and d["verify"]
     flt = t_faults.sample_faults(spec.build(), n_dead_links=1, seed=1)
-    # Runtime faults are ported; only the certified repair measurement
-    # waits for the analysis slice.
+    # Runtime faults are ported too.
     assert t_exp.Experiment(topology=spec, budget=T_BUDGET,
                             faults=flt).faults == flt
-    from repro_torch.faults import measure_repair
-    with pytest.raises(NotImplementedError, match="analysis"):
-        measure_repair(spec, flt)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        t_sweep.sweep(spec.build(), [], verify=True)
+    cfg = exp.sim_config()
+    assert (t_sweep.sweep(spec.build(), [cfg], verify=True)
+            == t_sweep.sweep(spec.build(), [cfg]))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_exp.Experiment(topology=spec, verify=True)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_sweep.sweep(spec.build(), [], verify=True)
 
 
 @pytest.mark.parametrize("family", ["ring_mesh", "flat_mesh"])

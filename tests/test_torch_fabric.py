@@ -198,11 +198,15 @@ def test_packet_codec_equal():
 
 
 def test_unported_paths_raise():
+    """``certify`` and ``check_deadlock_free`` raised until the fabric
+    analysis was ported; now they equal the reference's on the CPU."""
     ts = t_spec.TopologySpec("ring_mesh", 16)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        ts.certify()
-    with pytest.raises(NotImplementedError, match="analysis"):
-        ts.build().check_deadlock_free()
+    rs = r_spec.TopologySpec("ring_mesh", 16)
+    got, want = ts.certify(device="cpu").to_dict(), rs.certify().to_dict()
+    del got["elapsed_ms"], want["elapsed_ms"]
+    assert got == want and got["ok"]
+    assert ts.build().check_deadlock_free(device="cpu")
+    assert rs.build().check_deadlock_free()
     # The trace kind is ported and loads lazily: a bare "trace" names no
     # TraceSpec, so its spec class refuses it.
     with pytest.raises(TypeError, match="TraceSpec"):

@@ -138,8 +138,16 @@ def test_repair_helpers_equal_reference():
     assert rep_t.to_dict() == rep_r.to_dict()
     assert rep_t.build().reachable_frac == rep_r.build().reachable_frac
     assert t_faults.healthy_twin(rep_t) == ts
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t_faults.measure_repair(ts, ft)
+    # measure_repair, once refused for want of the fabric analysis: its
+    # three legs (a transient fault stays runtime-injected on the repaired
+    # one) and the repaired fabric's certificate equal the reference's.
+    got = t_faults.measure_repair(ts, ft, inj_rate=0.3, seed=1,
+                                  budget=t_exp.Budget(cycles=300, warmup=0,
+                                                      **CPU))
+    want = r_faults.measure_repair(rs, fr, inj_rate=0.3, seed=1,
+                                   budget=r_exp.Budget(cycles=300,
+                                                       warmup=0))
+    assert got == want and got["certified"]["ok"]
 
 
 # ---------------------------------------------------------------------------

@@ -89,19 +89,19 @@ def test_config_carries_across(setup):
 def test_other_archs_and_unported_paths_raise():
     for name in t_configs.ARCHS:
         if name != "zamba2-1.2b":
-            with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            with pytest.raises(NotImplementedError, match="rest of the model zoo"):
                 t_configs.get(name)
     with pytest.raises(KeyError):
         t_configs.get("gpt-5")
     cfg = t_configs.get("zamba2-1.2b")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="distribution layer"):
         dataclasses.replace(cfg, attn_impl="seq_shard")
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(cfg, attn_impl="pallas")
     moe = dataclasses.replace(
         cfg, stages=((("moe",), 38),), ssm=None,
         moe=t_config.MoEConfig(n_experts=4, top_k=2, d_ff_expert=64))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="rest of the model zoo"):
         t_model.model_meta(moe)
 
 
