@@ -1,12 +1,12 @@
 """Drive the PyTorch/CUDA port (the NoC simulator, its fabric analysis
-and the model zoo's Zamba2-1.2B path) on one NVIDIA card.
+and the model zoo's decoder-only architectures) on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Runs from a checkout of the repository, needs one CUDA device and nvcc,
 and imports nothing of jax or of the JAX reference package.  It builds the
 port's three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-each, started together) and runs twelve phases; any failure raises and
+each, started together) and runs fifteen phases; any failure raises and
 exits non-zero.
 
 1. Device: the card's name and power limit (``nvidia-smi``), the kernels'
@@ -50,13 +50,16 @@ exits non-zero.
 8. ``flash_attention`` and ``ssd_scan`` against their plain versions on
    the card: the CPU tests' matrices in float32 and bfloat16, then the
    full-width shapes in bfloat16 (Zamba2 scoring, h2o-danube's window and
-   offset, width 128; the SSD at Zamba2 scoring and at mamba2-1.3b's
-   d_state 128), each timed with CUDA events beside its plain version,
+   offset, width 128, qwen2-7b scoring and h2o-danube scoring; the SSD at
+   Zamba2 scoring and at mamba2-1.3b's d_state 128, 8 heads and its
+   scoring shape), each timed with CUDA events beside its plain version,
    ``scaled_dot_product_attention`` for attention (a yardstick the port
    never calls) and the time of the scalar-FMA kernel the tensor-core one
    replaced, and its bound and share of it.  The SSD runs and is timed
    at every split of P over k blocks that fits, each split's shared
-   bytes (the kernel's own count) checked against ``ssd_scan.plan``.
+   bytes (the kernel's own count) checked against ``ssd_scan.plan``; at
+   d_state 128 it also runs in float32, the scalar kernel split over
+   ``plan``'s k blocks, held to its plain version within 3e-4.
 9. The scoring path at full width: ``zamba2-1.2b`` (38 layers, d_model
    2048) from ``init_params`` on the card scores 2 x 4096 tokens through
    ``forward`` -> ``unembed`` and ``loss_fn``; 38 ``ssd_scan`` and 6
@@ -83,15 +86,36 @@ exits non-zero.
    ``measure_repair`` on the fault recipe's repair scenario at 256 and
    1024 PEs, its legs held to phase 6's reports and its ``certified``
    block to the reference certificate; the BFS-refill cycle's witness.
+13. The decoder-only zoo scored at full width (phase 11's model freed
+   first): qwen2-7b (28 layers, 2 x 4096 tokens), h2o-danube-1.8b (24
+   layers, 1 x 8192, the window binds), mamba2-1.3b (48 layers, 2 x
+   4096), and at their published widths with the depth cut for device
+   memory qwen2.5-14b (12 of 48 layers), phi3.5-moe (4 of 32),
+   llama4-scout (2 of 48, 2 x 2048) and command-r-plus (2 of 64, 1 x
+   4096), each from ``init_params`` on the card: one launch per layer
+   per forward, logits and loss held to the plain route (on MoE models
+   at the tokens both runs routed alike, experts and capacity), device
+   ms and tokens/s per forward split into the kernels and the rest, and
+   a float32-compute check on all but qwen2.5-14b and command-r-plus.
+14. The JAX anchor for the zoo: one full-width layer of qwen2-7b,
+   h2o-danube-1.8b, mamba2-1.3b and phi3.5-moe on the numpy weights of
+   ``tests/data/torch_port_zoo_reference.json``'s seed (fingerprints
+   checked), held to that file's top-10 logits, loss, auxiliary loss
+   and phi3.5-moe's routing.
+15. Serving qwen2-7b (28 layers) and phi3.5-moe (4 layers), redrawn as
+   in phase 13, with phase 11's recipe: every request completes, no
+   kernel launches, prefill against a cache-free plain forward.
 
-Launch counts are zeroed just before each of phases 3, 5, 6, 9, 11 and
-12's ``verify=True`` grid and ``measure_repair`` runs, and read just
-after (by mode for noc_step).  Phases 5 and 6 split their host
-wall clock into its stages (topology builds, device geometry, streams and
-operands, the kernel, the reachability walk, the rest), phase 9 its
-forward's into the two kernels and the rest, each with its share.  The
-line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before each of phases 3, 5, 6, 9, 11,
+12's ``verify=True`` grid and ``measure_repair`` runs, and each model's
+run in phases 13-15, and read just after (by mode for noc_step).  Phases
+5 and 6 split their host wall clock into its stages (topology builds,
+device geometry, streams and operands, the kernel, the reachability
+walk, the rest), phase 9 its forward's into the two kernels and the
+rest, each with its share, and phase 13 each model's.  The kernels'
+record counts the launches of phases 9, 13 and 14 for the model zoo's
+two kernels.  The line before the last is the kernels' JSON record; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -860,17 +884,24 @@ SSD_CASES = [
 # a batch of 2 x 4096 tokens (32 MHA heads of width 64; 64 SSD heads of
 # width 64, d_state 64, one group, chunk 128).  Then h2o-danube-1.8b's
 # GQA 32/8, width 80, a 4096 window, queries at the tail of an 8192 kv;
-# and the Qwen width 128 with GQA 28/4.
+# the Qwen width 128 with GQA 28/4; and the scoring shapes of phase 13:
+# qwen2-7b's 2 x 4096 tokens and h2o-danube-1.8b's 1 x 8192, where the
+# window binds.
 FLASH_SHAPES = [
     ("zamba2 scoring", (2, 32, 32, 4096, 4096, 64, True, None)),
     ("h2o-danube window 4096, offset 4096", (1, 32, 8, 4096, 8192, 80, True,
                                              4096)),
     ("qwen d128", (1, 28, 4, 2048, 2048, 128, True, None)),
+    ("qwen2-7b scoring", (2, 28, 4, 4096, 4096, 128, True, None)),
+    ("h2o-danube scoring", (1, 32, 8, 8192, 8192, 80, True, 4096)),
 ]
-# The SSD at mamba2-1.3b's d_state 128 (N 128, P 64, chunk 128), which
-# only the bfloat16 kernel takes.
+# The SSD at mamba2-1.3b's d_state 128 (N 128, P 64, chunk 128): 8 heads
+# x 512 steps, and its scoring shape (2 x 4096 tokens, 64 heads).  Both
+# also run in float32, where the scalar kernel splits P over k blocks.
 SSD_SHAPES = [("zamba2 scoring", (2, 64, 1, 4096, 64, 64, 128)),
-              ("mamba2-1.3b d_state 128", (1, 8, 1, 512, 64, 128, 128))]
+              ("mamba2-1.3b d_state 128", (1, 8, 1, 512, 64, 128, 128)),
+              ("mamba2-1.3b scoring", (2, 64, 1, 4096, 64, 128, 128))]
+SSD_F32_SHAPES = SSD_SHAPES[1:]
 # The scalar-FMA bfloat16 kernels that the tensor-core ones replaced, at
 # the same shapes (PERF.md's kernel table, earlier times; NVIDIA H100 80GB
 # HBM3, 700.00 W), printed beside the current kernels.
@@ -963,6 +994,33 @@ def device_clock(targets):
         spent[name] = sum(a.elapsed_time(b) for a, b in pairs)
 
 
+def kernel_counts(cfg) -> dict:
+    """Kernel launches one cache-free forward of ``cfg`` makes."""
+    n = {k: sum(u.count(k) * r for u, r in cfg.stages)
+         for k in ("attn", "moe", "mamba", "hybrid")}
+    return {"flash_attention": n["attn"] + n["moe"] + n["hybrid"],
+            "ssd_scan": n["mamba"] + n["hybrid"]}
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    return {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    fa.reset_launches()
+    ss.reset_launches()
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def model_config():
     from repro_torch import configs
     return configs.get(ARCH)
@@ -1011,8 +1069,9 @@ def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return int(torch.clamp(hi - lo + 1, min=0).sum())
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+def bound(ops: float, nbytes: float,
+          ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1030,13 +1089,15 @@ def ssd_bound(shape, itemsize: int) -> tuple[float, str]:
     """Per chunk and head the four products: C.B^T and M @ X over the
     lower triangle's L(L+1)/2 pairs, C @ state and the state update
     B^T @ X; x, b, c read and y written once in ``itemsize``, dt and a in
-    float32."""
+    float32.  bfloat16 at the tensor cores' rate, float32 at the scalar
+    float32 rate (the float32 kernel's FMAs)."""
     b, h, g, s, p, n, chunk = shape
     tri = chunk * (chunk + 1) // 2
     ops = b * h * (s // chunk) * 2 * (tri * n + tri * p + 2 * chunk * n * p)
     nbytes = itemsize * (2 * b * h * s * p + 2 * b * g * s * n) \
         + 4 * (b * h * s + h)
-    return bound(ops, nbytes)
+    return bound(ops, nbytes, BF16_OPS_PER_S if itemsize == 2
+                 else SCALAR_OPS_PER_S)
 
 
 def attn_operands(shape, dtype, gen):
@@ -1122,9 +1183,11 @@ def phase_kernels() -> dict:
                                              window=window), reps=1)
         lib_ms = sdpa_ms(q, k, v, shape)
         b_ms, by = flash_bound(shape, 2)
-        say(8, f"flash_attention {label} {shape[:6]} bf16, tensor cores: "
-               f"kernel {ms:.3f} ms (the scalar-FMA kernel "
-               f"{SCALAR_FLASH_MS[label]:.3f} ms), plain {plain_ms:.3f} ms, "
+        scalar = (f" (the scalar-FMA kernel {SCALAR_FLASH_MS[label]:.3f} "
+                  f"ms)" if label in SCALAR_FLASH_MS else "")
+        say(8, f"flash_attention {label} {shape[:6]} window {shape[7]} "
+               f"bf16, tensor cores: kernel {ms:.3f} ms{scalar}, plain "
+               f"{plain_ms:.3f} ms, "
                f"scaled_dot_product_attention {lib_ms:.3f} ms (kernel "
                f"{ms / lib_ms:.2f}x of it), bound {b_ms:.4f} ms ({by}, "
                f"{b_ms / ms:.1%} of it), max |diff| {e:.3g} [{CARD}]")
@@ -1168,6 +1231,33 @@ def phase_kernels() -> dict:
             out["ssd_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=by, library_ms=None)
         del ops, want
+    f32 = torch.float32
+    for label, shape in SSD_F32_SHAPES:
+        # the scalar float32 kernel at d_state 128: P split over k blocks
+        ops = ssd_operands(shape, f32, gen)
+        bsz, h, _, _, p, n, chunk = shape
+        want = ss.plain(*ops, chunk=chunk)
+        k_plan, threads, nbytes = ss.plan(bsz * h, chunk, n, p, f32)
+        small = bsz * h * shape[3] <= 8 * 512
+        per_k = []
+        for k in ss.splits(chunk, n, p, f32) if small else [k_plan]:
+            kb = ss.plan(bsz * h, chunk, n, p, f32, split=k)[2]
+            assert lib.ssd_scan_shared_bytes(chunk, n, p, k, 0) == kb, (
+                label, k, kb)
+            e = check_close("ssd_scan", f"{label} float32 k={k}",
+                            ss.ssd_scan(*ops, chunk=chunk, split=k), want)
+            err["ssd_scan"] = max(err["ssd_scan"], e)
+            per_k.append(f"k={k} ({kb} B) max |diff| {e:.3g}")
+        ms = event_ms(lambda: ss.ssd_scan(*ops, chunk=chunk), reps=3)
+        plain_ms = event_ms(lambda: ss.plain(*ops, chunk=chunk), reps=1)
+        b_ms, by = ssd_bound(shape, 4)
+        say(8, f"ssd_scan {label} {shape} float32, scalar FMAs, plan k="
+               f"{k_plan} ({threads} threads, {nbytes} B shared, "
+               f"{bsz * h * k_plan} blocks): kernel {ms:.4f} ms, plain "
+               f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({by}, "
+               f"{b_ms / ms:.1%} of it); within {TOL[('ssd_scan', f32)]} of "
+               f"plain at {'; '.join(per_k)} [{CARD}]")
+        del ops, want
     for name in out:
         out[name]["err"] = err[name]
     return out
@@ -1192,8 +1282,6 @@ def phase_scoring():
     """The scoring path at full width: forward -> unembed and loss_fn
     through the kernels, their launches counted, held against the plain
     route on the card.  Returns (launches, config, parameters)."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import model as M
 
     cfg = model_config()
@@ -1208,69 +1296,7 @@ def phase_scoring():
            f"{time.perf_counter() - t0:.3f} s)")
     tokens = torch.randint(0, cfg.vocab, (SCORE_BATCH, SCORE_SEQ),
                            generator=gen, device=DEVICE)
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
-    n_ssd = sum(len(u) * r for u, r in cfg.stages)
-    n_attn = sum(u.count("hybrid") * r for u, r in cfg.stages)
-
-    fa.reset_launches()
-    ss.reset_launches()
-    logits, host_s, dev_ms = timed_forward(cfg, params, tokens)
-    per_forward = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
-    loss, _ = M.loss_fn(cfg, params, batch)
-    launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
-    say(9, f"launches per forward {per_forward}, over forward + loss_fn "
-           f"{launches}")
-    assert per_forward == {"flash_attention": n_attn, "ssd_scan": n_ssd}
-    assert launches == {"flash_attention": 2 * n_attn,
-                        "ssd_scan": 2 * n_ssd}
-    assert logits.shape == (SCORE_BATCH, SCORE_SEQ, cfg.vocab)
-    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(loss))
-    say(9, f"forward -> unembed over {SCORE_BATCH} x {SCORE_SEQ} tokens: "
-           f"first call {host_s:.3f} s host, {dev_ms:.3f} ms device; loss "
-           f"{float(loss):.6f} (ln vocab {math.log(cfg.vocab):.6f})")
-    runs = [timed_forward(cfg, params, tokens)[1:] for _ in range(2)]
-    with device_clock(((fa, "flash_attention"),
-                       (ss, "ssd_scan"))) as spent:
-        _, _, split_ms = timed_forward(cfg, params, tokens)
-    rest = split_ms - sum(spent.values())
-    say(9, f"forward -> unembed, warm: host {runs[0][0]:.3f} / "
-           f"{runs[1][0]:.3f} s, device {runs[0][1]:.3f} / {runs[1][1]:.3f}"
-           f" ms; a third: {split_ms:.3f} ms device = flash_attention "
-           f"{spent['flash_attention']:.3f} ms "
-           f"({per_forward['flash_attention']} calls, "
-           f"{spent['flash_attention'] / split_ms:.1%}), ssd_scan "
-           f"{spent['ssd_scan']:.3f} ms ({per_forward['ssd_scan']} calls, "
-           f"{spent['ssd_scan'] / split_ms:.1%}), rest {rest:.3f} ms "
-           f"({rest / split_ms:.1%}) (CUDA events around each wrapper "
-           f"call) [{CARD}]")
-
-    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
-    plain_logits, plain_s, plain_dev = timed_forward(plain_cfg, params,
-                                                     tokens)
-    plain_loss, _ = M.loss_fn(plain_cfg, params, batch)
-    d_loss = abs(float(loss) - float(plain_loss))
-    say(9, f"plain route on the card: {plain_s:.3f} s host, "
-           f"{plain_dev:.3f} ms device [{CARD}]")
-    msg = logits_close("scoring", logits, plain_logits)
-    say(9, f"kernels vs plain, bfloat16: {msg} (limit {SCORE_RMS_TOL}); "
-           f"|d loss| {d_loss:.2e} (limit {SCORE_LOSS_TOL})")
-    assert d_loss <= SCORE_LOSS_TOL
-    del logits, plain_logits
-    saved = M.COMPUTE_DTYPE
-    M.COMPUTE_DTYPE = torch.float32
-    try:
-        got, _, f32_ms = timed_forward(cfg, params, tokens)
-        want, _, f32_plain_ms = timed_forward(plain_cfg, params, tokens)
-        d_loss = abs(float(M.loss_fn(cfg, params, batch)[0])
-                     - float(M.loss_fn(plain_cfg, params, batch)[0]))
-    finally:
-        M.COMPUTE_DTYPE = saved
-    msg = logits_close("scoring float32", got, want)
-    say(9, f"kernels vs plain, float32 compute ({f32_ms:.3f} / "
-           f"{f32_plain_ms:.3f} ms device): {msg} (limit {SCORE_F32_TOL} "
-           f"+ {SCORE_F32_TOL} * |plain|); |d loss| {d_loss:.2e} (limit "
-           f"{SCORE_F32_TOL})")
-    assert d_loss <= SCORE_F32_TOL
+    launches = score(9, cfg, params, tokens, f32_check=True)
     return launches, cfg, params
 
 
@@ -1327,12 +1353,10 @@ def phase_anchor():
     assert top1 >= n - 2
 
 
-def phase_serving(cfg, params):
+def phase_serving(cfg, params, phase: int = 11):
     """ServeEngine at full width: every request completes; the engine's
     prefill (the plain route with a cache) agrees with a cache-free plain
     forward; no kernel launches, as in the reference's routing."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import model as M
     from repro_torch.serve import Request, ServeEngine
 
@@ -1347,35 +1371,47 @@ def phase_serving(cfg, params):
                       max_seq=SERVE["max_seq"])
     for r in reqs:
         eng.submit(r)
-    fa.reset_launches()
-    ss.reset_launches()
+    reset_counts()
     with host_clock(((M, "prefill"), (M, "decode_step"))) as spent:
         t0 = time.perf_counter()
         ticks = eng.run(max_ticks=10_000)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+    launches = launch_counts()
     n_tok = sum(len(r.output) for r in reqs)
     lens = [len(r.prompt) for r in reqs]
-    say(11, f"ServeEngine {SERVE['n_slots']} slots, max_seq "
-            f"{SERVE['max_seq']}: {len(reqs)} requests (prompts {lens}, "
-            f"{sum(lens)} tokens) done in {ticks} ticks, {n_tok} tokens in "
-            f"{wall:.3f} s"
-            f" = {n_tok / wall:.2f} tokens/s host wall clock incl. prefill; "
-            f"{host_split(wall, spent)}; kernel launches {launches} "
-            f"[{CARD}]")
+    say(phase, f"{cfg.name}: ServeEngine {SERVE['n_slots']} slots, max_seq "
+               f"{SERVE['max_seq']}: {len(reqs)} requests (prompts {lens}, "
+               f"{sum(lens)} tokens) done in {ticks} ticks, {n_tok} tokens in "
+               f"{wall:.3f} s = {n_tok / wall:.2f} tokens/s host wall clock "
+               f"incl. prefill; "
+               f"{host_split(wall, spent)}; kernel launches {launches} "
+               f"[{CARD}]")
     for r in reqs:
         assert r.done and len(r.output) == r.max_new_tokens, r.rid
         assert all(0 <= t < cfg.vocab for t in r.output), r.rid
     assert launches == {"flash_attention": 0, "ssd_scan": 0}
     first = torch.tensor([reqs[0].prompt], device=DEVICE)
-    pre, *_ = M.prefill(cfg, params, first, SERVE["max_seq"])
+    with routes() as pre_routes:
+        pre, *_ = M.prefill(cfg, params, first, SERVE["max_seq"])
     plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
-    hidden, *_ = M.forward(plain_cfg, params, first)
+    with routes() as plain_routes:
+        hidden, *_ = M.forward(plain_cfg, params, first)
     full = M.unembed(plain_cfg, params, hidden[:, -1:])
-    say(11, f"prefill (per-token recurrence, cached attention) vs a "
-            f"cache-free plain forward on request 0: "
-            f"{logits_close('prefill', pre, full)}")
+    flipped, shares = routed_elsewhere(pre_routes, plain_routes,
+                                       first.shape, cfg.moe)
+    share = float(flipped.float().mean())
+    assert share <= ROUTING_SHARE_LIMIT, (cfg.name, shares)
+    if bool(flipped[0, -1]):
+        # a whole expert apart: the logits say nothing of the cache path
+        msg = ("its last token was routed otherwise in some layer, so "
+               "its logits are not compared")
+    else:
+        msg = logits_close("prefill", pre, full)
+    routing = (f"{share:.2%} of the prompt's tokens routed otherwise "
+               f"(limit {ROUTING_SHARE_LIMIT:.0%}); " if cfg.moe else "")
+    say(phase, f"prefill (cached attention, per-token recurrence) vs a "
+               f"cache-free plain forward on request 0: {routing}{msg}")
     return n_tok / wall
 
 
@@ -1564,6 +1600,381 @@ def phase_analysis(fault_ref, fault_reports) -> None:
             f"wall clock [{CARD}]")
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: the decoder-only model zoo at full width.
+# ---------------------------------------------------------------------------
+ZOO_REFERENCE = os.path.join(ROOT, "tests", "data",
+                             "torch_port_zoo_reference.json")
+# (architecture, layers run (None: all of them), (batch, seq), whether the
+# float32-compute check runs).  Every model runs at its published widths.
+# The last four are cut in depth (and llama4-scout and command-r-plus in
+# tokens) for device memory: their float32 master parameters at full
+# depth (qwen2.5-14b 59 GB, phi3.5-moe 167 GB, llama4-scout 431 GB,
+# command-r-plus 428 GB) leave too little of the card's 80 GB, or do not
+# fit at all, beside the bfloat16 logits (2.5 GB at vocab 152 064 over
+# 2 x 4096 tokens), the plain route's copy of them and its loss chunks.
+ZOO = [
+    ("qwen2-7b", None, (2, 4096), True),
+    ("h2o-danube-1.8b", None, (1, 8192), True),
+    ("mamba2-1.3b", None, (2, 4096), True),
+    ("qwen2.5-14b", 12, (2, 4096), False),
+    ("phi3.5-moe-42b-a6.6b", 4, (2, 4096), True),
+    ("llama4-scout-17b-a16e", 2, (2, 2048), True),
+    ("command-r-plus-104b", 2, (1, 4096), False),
+]
+ZOO_SEED = 13
+# Phase 15 serves these two of phase 13's models, with phase 11's recipe.
+SERVE_ZOO = ("qwen2-7b", "phi3.5-moe-42b-a6.6b")
+# A MoE layer routes a token elsewhere wherever its input differs by an
+# ulp between two near-equal gates, and that token's output then differs
+# by a whole expert's; the shifted running counts of its experts can also
+# move which later token is the last to fit their capacity.  So on a MoE
+# model the logits are held only at the positions routed alike, experts
+# and capacity, in every layer (each run's experts are recorded at its
+# top-k), to the limits of a dense model; the loss within its limit plus
+# FLIPPED_CE nats times the share of tokens routed otherwise
+# (phi3.5-moe's full-width layer on a CPU against the JAX package: 7 of
+# 512 tokens routed elsewhere moved the mean by 0.0061, 0.66 nats each,
+# and tokens shifted past capacity by 0.0041 more); the auxiliary loss
+# within 0.02 (a flipped first choice moves it by n_experts / T times a
+# gate mean).  Kernels vs the plain route on an H100 (80GB HBM3, 700 W):
+# 20 % rms difference over all of phi3.5-moe's logits (four layers,
+# 8 192 tokens) against 3-4.5 % on the dense models; 0.6 % of
+# the tokens were routed elsewhere in the first layer, whose input
+# differs only by the attention kernel's rounding, and 8.8 % in the
+# fourth, as the differences compound.  The first layer's share is held
+# to ROUTING_SHARE_LIMIT.  With float32 compute a flip needs two gates
+# within float32's summation-order differences: at most 1 % of the
+# tokens (measured 1 of 8 192).
+AUX_TOL, FLIPPED_CE, F32_FLIP_SHARE = 0.02, 1.5, 0.01
+# Against the JAX anchor in bfloat16 (one layer): the share of tokens
+# routed otherwise may reach 5 % (CPU: 1.0-1.4 % routed elsewhere), and
+# the top-10 logits of such a position stay within 1.0 (one expert's
+# contribution through one layer).
+ROUTING_SHARE_LIMIT, FLIPPED_LOGIT_TOL = 0.05, 1.0
+
+
+@contextlib.contextmanager
+def routes():
+    """The experts every MoE layer routes to while the block runs: one
+    (T, k) tensor per ``top_k`` call, in layer order."""
+    from repro_torch.models import layers as L
+    out, top_k = [], L.top_k
+
+    def recording(gates, k):
+        vals, idx = top_k(gates, k)
+        out.append(idx)
+        return vals, idx
+    L.top_k = recording
+    try:
+        yield out
+    finally:
+        L.top_k = top_k
+
+
+def dispatch(idx, moe):
+    """A layer's recorded (T, k) experts, sorted per token, and which of
+    the choices keep a slot: the capacity ``moe_block`` computes, filled
+    in token-major order."""
+    t, k = idx.shape
+    cap = max(math.ceil(t * k * moe.capacity_factor / moe.n_experts), 4)
+    flat = idx.reshape(-1)
+    count = torch.cumsum(torch.nn.functional.one_hot(flat, moe.n_experts),
+                         dim=0)
+    kept = (torch.gather(count, 1, flat[:, None])[:, 0] <= cap).reshape(t, k)
+    ids, order = idx.sort(-1)
+    return ids, kept.gather(-1, order)
+
+
+def routed_elsewhere(got, want, shape, moe=None):
+    """(mask over ``shape``'s tokens handled otherwise in any layer, the
+    share of such tokens per layer).  A token is handled otherwise where
+    its set of experts differs, or where a choice of it keeps its slot in
+    one run and overflows the capacity in the other: a token routed
+    elsewhere shifts the running counts of its experts, and with them
+    which later token is the last to fit."""
+    if not want:
+        return torch.zeros(shape, dtype=torch.bool), []
+    assert len(got) == len(want)
+    flips = []
+    for a, b in zip(got, want):
+        (ia, ka), (ib, kb) = dispatch(a.cpu(), moe), dispatch(b.cpu(), moe)
+        flips.append((ia != ib).any(-1) | (ka != kb).any(-1))
+    flips = torch.stack(flips)
+    return (flips.any(0).reshape(shape),
+            [round(float(f), 4) for f in flips.float().mean(-1)])
+
+
+def zoo_config(arch: str, depth):
+    """The architecture at its published widths, its one stage cut to
+    ``depth`` repeats (all of them if None)."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if depth is None:
+        return cfg
+    (unit, _reps), = cfg.stages
+    return dataclasses.replace(cfg, stages=((unit, depth),),
+                               n_layers=len(unit) * depth)
+
+
+def score(phase: int, cfg, params, tokens, f32_check: bool) -> dict:
+    """forward -> unembed and loss_fn through the kernels, their launches
+    counted, timed and held to the plain route on the card (and with
+    float32 compute if ``f32_check``).  Returns the launches of forward +
+    loss_fn."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import model as M
+
+    name, shape = cfg.name, tuple(tokens.shape)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    want = kernel_counts(cfg)
+    reset_counts()
+    with routes() as kernel_routes:
+        logits, host_s, dev_ms = timed_forward(cfg, params, tokens)
+    per_forward = launch_counts()
+    loss, parts = M.loss_fn(cfg, params, batch)
+    launches = launch_counts()
+    assert per_forward == want, (name, per_forward, want)
+    assert launches == {k: 2 * v for k, v in want.items()}, (name, launches)
+    assert logits.shape == (*shape, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(loss))
+    runs = [timed_forward(cfg, params, tokens)[1:] for _ in range(2)]
+    with device_clock(((fa, "flash_attention"),
+                       (ss, "ssd_scan"))) as spent:
+        _, _, split_ms = timed_forward(cfg, params, tokens)
+    kernel_ms = sum(spent.values())
+    n_tok = shape[0] * shape[1]
+    say(phase, f"{name}: launches per forward {per_forward}, over forward "
+               f"+ loss_fn {launches}; loss {float(loss):.6f} (ln vocab "
+               f"{math.log(cfg.vocab):.6f}), aux {float(parts['aux']):.6f}; "
+               f"first call {host_s:.3f} s host / {dev_ms:.3f} ms device; "
+               f"warm {runs[0][0]:.3f} / {runs[1][0]:.3f} s host, "
+               f"{runs[0][1]:.3f} / {runs[1][1]:.3f} ms device = "
+               f"{n_tok / runs[1][1] * 1e3:.0f} tokens/s; a third "
+               f"{split_ms:.3f} ms = flash_attention "
+               f"{spent['flash_attention']:.3f} ms + ssd_scan "
+               f"{spent['ssd_scan']:.3f} ms ({kernel_ms / split_ms:.1%}) + "
+               f"rest {split_ms - kernel_ms:.3f} ms (CUDA events around "
+               f"each wrapper call) [{CARD}]")
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+    with routes() as plain_routes:
+        plain_logits, plain_s, plain_dev = timed_forward(plain_cfg, params,
+                                                         tokens)
+    plain_loss, plain_parts = M.loss_fn(plain_cfg, params, batch)
+    flipped, shares = routed_elsewhere(kernel_routes, plain_routes, shape,
+                                       cfg.moe)
+    share = float(flipped.float().mean())
+    d_loss = abs(float(loss) - float(plain_loss))
+    loss_tol = SCORE_LOSS_TOL + FLIPPED_CE * share
+    d_aux = abs(float(parts["aux"]) - float(plain_parts["aux"]))
+    if cfg.moe:
+        alike = ~flipped.to(logits.device)
+        logits, plain_logits = logits[alike], plain_logits[alike]
+    msg = logits_close(f"{name} scoring", logits, plain_logits)
+    routing = (f"routed otherwise (other experts or past capacity) in "
+               f"some layer: {share:.2%} of the tokens "
+               f"(per layer {shares}); at the others " if cfg.moe else "")
+    say(phase, f"{name}: kernels vs plain (plain route {plain_s:.3f} s "
+               f"host, {plain_dev:.3f} ms device), bfloat16: {routing}{msg} "
+               f"(limit {SCORE_RMS_TOL}); |d loss| {d_loss:.2e} (limit "
+               f"{loss_tol:.4f}); |d aux| {d_aux:.2e} (limit {AUX_TOL}) "
+               f"[{CARD}]")
+    assert d_loss <= loss_tol and d_aux <= AUX_TOL
+    assert not shares or shares[0] <= ROUTING_SHARE_LIMIT, (name, shares)
+    del logits, plain_logits
+    free_card()
+    if f32_check:
+        saved = M.COMPUTE_DTYPE
+        M.COMPUTE_DTYPE = torch.float32
+        try:
+            reset_counts()
+            with routes() as kernel_routes:
+                got, _, f32_ms = timed_forward(cfg, params, tokens)
+            assert launch_counts() == want, (name, launch_counts())
+            with routes() as plain_routes:
+                want_l, _, f32_plain_ms = timed_forward(plain_cfg, params,
+                                                        tokens)
+            flipped, _ = routed_elsewhere(kernel_routes, plain_routes,
+                                          shape, cfg.moe)
+            share = float(flipped.float().mean())
+            if cfg.moe:
+                alike = ~flipped.to(got.device)
+                got, want_l = got[alike], want_l[alike]
+            msg = logits_close(f"{name} scoring float32", got, want_l)
+            del got, want_l
+            free_card()
+            d_loss = abs(float(M.loss_fn(cfg, params, batch)[0])
+                         - float(M.loss_fn(plain_cfg, params, batch)[0]))
+        finally:
+            M.COMPUTE_DTYPE = saved
+        routing = (f"routed otherwise: {share:.2%} of the tokens (limit "
+                   f"{F32_FLIP_SHARE:.0%}); at the others "
+                   if cfg.moe else "")
+        say(phase, f"{name}: kernels vs plain, float32 compute "
+                   f"({f32_ms:.3f} / {f32_plain_ms:.3f} ms device): "
+                   f"{routing}{msg} (limit {SCORE_F32_TOL} + "
+                   f"{SCORE_F32_TOL} * |plain|); |d loss| {d_loss:.2e} "
+                   f"(limit {SCORE_F32_TOL})")
+        assert share <= F32_FLIP_SHARE
+        assert d_loss <= SCORE_F32_TOL + FLIPPED_CE * share
+    return launches
+
+
+def score_zoo_model(arch: str, depth, shape, f32_check: bool) -> dict:
+    """One model of phase 13, drawn on the card from ``ZOO_SEED`` and
+    scored; returns the launches of forward + loss_fn."""
+    from repro_torch.models import model as M
+
+    cfg = zoo_config(arch, depth)
+    full = zoo_config(arch, None)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        ZOO_SEED), DEVICE)
+    torch.cuda.synchronize()
+    cut = ("all layers" if depth is None else
+           f"cut from {full.n_layers} layers for device memory: "
+           f"{4 * full.param_count() / 1e9:.1f} GB of float32 parameters "
+           f"at full depth, {4 * cfg.param_count() / 1e9:.1f} GB here")
+    say(13, f"{arch}: d_model {cfg.d_model}, {cfg.n_layers} layers "
+            f"({cut}), {cfg.param_count()} parameters from init_params on "
+            f"the card in {time.perf_counter() - t0:.3f} s; "
+            f"{shape[0]} x {shape[1]} tokens"
+            + ("" if depth is None or shape == (2, 4096) else
+               " (tokens cut for the logits' memory)"))
+    gen = torch.Generator(device=DEVICE).manual_seed(ZOO_SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen, device=DEVICE)
+    launches = score(13, cfg, params, tokens, f32_check)
+    del params
+    free_card()
+    return launches
+
+
+def phase_zoo_scoring() -> dict:
+    """Phase 13: the seven decoder-only architectures scored at full width.
+    Returns the kernels' launches summed over the models."""
+    t0 = time.perf_counter()
+    total = {"flash_attention": 0, "ssd_scan": 0}
+    for arch, depth, shape, f32_check in ZOO:
+        for k, v in score_zoo_model(arch, depth, shape, f32_check).items():
+            total[k] += v
+    say(13, f"{len(ZOO)} architectures scored in "
+            f"{time.perf_counter() - t0:.1f} s host wall clock; launches "
+            f"{total} [{CARD}]")
+    return total
+
+
+def leaf(tree, key: str):
+    """A leaf of a parameter tree by the anchor file's dotted name."""
+    if key in ("embed", "unembed"):
+        return tree[key]
+    node = tree["stages"][0]
+    for part in key.split(".")[1:]:
+        node = node[part]
+    return node
+
+
+def phase_zoo_anchor() -> dict:
+    """Phase 14: one layer of four architectures at full width against the
+    JAX package on the same numpy weights.  Returns the kernels'
+    launches."""
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+
+    with open(ZOO_REFERENCE) as f:
+        ref = json.load(f)
+    total = {"flash_attention": 0, "ssd_scan": 0}
+    for arch, e in ref["models"].items():
+        (unit, reps), = e["cut"]["stages"]
+        cfg = zoo_config(arch, reps)
+        assert cfg.param_count() == e["cut"]["param_count"], arch
+        t0 = time.perf_counter()
+        tree = convert.init_numpy(cfg, ref["seed"])
+        for key, want in e["weights"].items():
+            v = leaf(tree, key)
+            assert v.reshape(-1)[:4].tolist() == want["head"], (arch, key)
+            assert math.isclose(float(np.sum(v, dtype=np.float64)),
+                                want["sum"], rel_tol=1e-9,
+                                abs_tol=1e-9), (arch, key)
+        params = convert.from_reference(cfg, tree, DEVICE)
+        del tree
+        say(14, f"{arch}: {cfg.param_count()} parameters ({cfg.n_layers} "
+                f"layer at full width) redrawn from seed {ref['seed']} "
+                f"(fingerprint of {len(e['weights'])} leaves equal to the "
+                f"reference's) and moved to the card in "
+                f"{time.perf_counter() - t0:.3f} s")
+        tokens = torch.tensor(e["tokens"], device=DEVICE)
+        labels = torch.tensor(e["labels"], device=DEVICE)
+        reset_counts()
+        with routes() as routed:
+            hidden, *_ = M.forward(cfg, params, tokens)
+        logits = M.unembed(cfg, params, hidden).float()
+        loss, parts = M.loss_fn(cfg, params, {"tokens": tokens,
+                                              "labels": labels})
+        for k, v in launch_counts().items():
+            total[k] += v
+        assert launch_counts() == {
+            k: 2 * v for k, v in kernel_counts(cfg).items()}, arch
+        want = [torch.tensor(e["experts"]).reshape(-1, cfg.moe.top_k)
+                ] if "experts" in e else []
+        flipped, _ = routed_elsewhere(routed, want, tokens.shape, cfg.moe)
+        share = float(flipped.float().mean())
+        if cfg.moe:
+            say(14, f"{arch}: routing (experts or capacity) differs from "
+                    f"the reference's at "
+                    f"{int(flipped.sum())} of {flipped.numel()} tokens "
+                    f"({share:.2%}; limit {ROUTING_SHARE_LIMIT:.0%})")
+            assert share <= ROUTING_SHARE_LIMIT, (arch, share)
+        err, err_flipped, top1 = 0.0, 0.0, 0
+        for t in e["top_logits"]:
+            row = logits[t["row"], t["pos"]]
+            d = float((row[t["ids"]] - torch.tensor(
+                t["logits"], device=DEVICE)).abs().max())
+            if flipped[t["row"], t["pos"]]:
+                err_flipped = max(err_flipped, d)
+            else:
+                err = max(err, d)
+                top1 += int(torch.argmax(row)) == t["ids"][0]
+        n = len(e["top_logits"])
+        n_alike = n - int(sum(flipped[t["row"], t["pos"]]
+                              for t in e["top_logits"]))
+        d_loss = abs(float(loss) - e["loss"])
+        loss_tol = ANCHOR_LOSS_TOL + FLIPPED_CE * share
+        d_aux = abs(float(parts["aux"]) - e["aux"])
+        say(14, f"{arch} vs the reference (jax {ref['jax_version']}, "
+                f"attn_impl {ref['attn_impl']}, {tokens.shape[0]} x "
+                f"{tokens.shape[1]} tokens): top-10 logits max |diff| "
+                f"{err:.4f} at {n_alike} positions routed alike (limit "
+                f"{ANCHOR_LOGIT_TOL})"
+                + (f", {err_flipped:.4f} at {n - n_alike} routed elsewhere "
+                   f"(limit {FLIPPED_LOGIT_TOL})" if n_alike < n else "")
+                + f", top-1 id equal at {top1} of {n_alike}; loss "
+                f"{float(loss):.6f} vs {e['loss']:.6f} (limit "
+                f"{loss_tol:.4f}); aux {float(parts['aux']):.6f} vs "
+                f"{e['aux']:.6f} (limit {AUX_TOL}) [{CARD}]")
+        assert err <= ANCHOR_LOGIT_TOL and err_flipped <= FLIPPED_LOGIT_TOL
+        assert d_loss <= loss_tol and d_aux <= AUX_TOL
+        assert top1 >= n_alike - 2
+        del params, logits, hidden
+        free_card()
+    return total
+
+
+def phase_zoo_serving() -> None:
+    """Phase 15: ServeEngine on two of phase 13's models, redrawn from the
+    same seed, with phase 11's recipe."""
+    from repro_torch.models import model as M
+    depths = {arch: depth for arch, depth, _, _ in ZOO}
+    for arch in SERVE_ZOO:
+        cfg = zoo_config(arch, depths[arch])
+        params = M.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(ZOO_SEED), DEVICE)
+        phase_serving(cfg, params, phase=15)
+        del params
+        free_card()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1603,8 +2014,14 @@ def main() -> int:
     launches.update(model_launches)
     phase_anchor()
     phase_serving(cfg, params)
+    del cfg, params
+    free_card()
     phase_analysis(ref, fault_reports)
-    say(12, f"whole run {time.perf_counter() - t0:.1f} s")
+    for counts in (phase_zoo_scoring(), phase_zoo_anchor()):
+        for name, n in counts.items():
+            launches[name] += n
+    phase_zoo_serving()
+    say(15, f"whole run {time.perf_counter() - t0:.1f} s")
     names = (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS,
              "flash_attention", "ssd_scan")
     record = {"kernels": [{

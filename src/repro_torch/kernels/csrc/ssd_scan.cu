@@ -61,11 +61,16 @@
 // mma.sync rather than wgmma, as in flash_attention.cu: one code path for
 // every (N, P/k) and no TMA descriptors; wgmma and TMA are later work.
 //
-// float32 (`fp32::ssd_kernel`, phase 9's float32-compute check only): the
-// port's first kernel, unchanged.  It stages float32 tiles and the L x L
-// score tile in shared memory and multiplies with scalar FMAs, one block
-// per (batch, head); TF32 tensor cores would break its 3e-4 agreement
-// with the plain version.  A bfloat16 call never reaches it.
+// float32 (`fp32::ssd_kernel`, the float32-compute checks only): the
+// port's first kernel.  It stages float32 tiles and the L x L score tile
+// in shared memory and multiplies with scalar FMAs; TF32 tensor cores
+// would break its 3e-4 agreement with the plain version.  As the bfloat16
+// kernel does, it splits the P columns of the state, x and y over k
+// blocks per (batch, head), each recomputing the score tile: at chunk
+// 128, N 128, P 64 (mamba2-1.3b) one block's tiles are 264 704 bytes,
+// past the 232 448 a block may take, and at k = 2 they are 231 936.
+// ssd_scan.plan takes the smallest k that fits (k = 1 at d_state 64).  A
+// bfloat16 call never reaches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,46 +90,50 @@ namespace fp32 {
 
 constexpr int THREADS = 512;
 
-size_t shared_floats(int L, int N, int P) {
-  // state [N][P], x [L][P], b [L][N+1], c [L][N], M [L][L+1],
-  // cum, dt and w [L] each
-  return (size_t)N * P + (size_t)L * P + (size_t)L * (N + 1) +
+size_t shared_floats(int L, int N, int W) {
+  // state [N][W], x [L][W], b [L][N+1], c [L][N], M [L][L+1],
+  // cum, dt and w [L] each; W = P / k columns a block
+  return (size_t)N * W + (size_t)L * W + (size_t)L * (N + 1) +
          (size_t)L * N + (size_t)L * (L + 1) + 3 * (size_t)L;
 }
 
 // x, y: [B*H, S, P]; dt: [B*H, S] float32; a: [H] float32;
-// b, c: [B*G, S, N].  grid = B*H.
+// b, c: [B*G, S, N].  grid = B*H*k; block j of a (batch, head) owns the
+// W = P / k columns from j * W.
 __global__ void __launch_bounds__(THREADS)
     ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ a, const float* __restrict__ b,
                const float* __restrict__ c, float* __restrict__ y, int h,
-               int g, int s, int L, int N, int P) {
+               int g, int s, int L, int N, int P, int k) {
   extern __shared__ float sm[];
-  float* st = sm;                  // [N][P] carried state
-  float* xs = st + N * P;          // [L][P]
-  float* bs = xs + L * P;          // [L][N+1]
+  const int W = P / k;
+  float* st = sm;                  // [N][W] carried state
+  float* xs = st + N * W;          // [L][W]
+  float* bs = xs + L * W;          // [L][N+1]
   float* cs = bs + L * (N + 1);    // [L][N]
   float* ms = cs + L * N;          // [L][L+1]
   float* cum = ms + L * (L + 1);   // [L]
   float* dts = cum + L;            // [L]
   float* ws = dts + L;             // [L] exp(cum_L - cum_u) * dt_u
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / k;
+  const int p0 = (blockIdx.x % k) * W;
   const int bi = bh / h, hi = bh % h;
   const int gi = bi * g + hi / (h / g);
   const float ah = a[hi];
-  const float* xg = x + (size_t)bh * s * P;
+  const float* xg = x + (size_t)bh * s * P + p0;
   const float* dtg = dt + (size_t)bh * s;
   const float* bg = b + (size_t)gi * s * N;
   const float* cg = c + (size_t)gi * s * N;
-  float* yg = y + (size_t)bh * s * P;
+  float* yg = y + (size_t)bh * s * P + p0;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < N * P; i += THREADS) st[i] = 0.f;
+  for (int i = tid; i < N * W; i += THREADS) st[i] = 0.f;
 
   for (int t0 = 0; t0 < s; t0 += L) {
     __syncthreads();  // the last chunk's reads of x, b, c, dt are done
-    for (int i = tid; i < L * P; i += THREADS) xs[i] = xg[(size_t)t0 * P + i];
+    for (int i = tid; i < L * W; i += THREADS)
+      xs[i] = xg[(size_t)(t0 + i / W) * P + i % W];
     for (int i = tid; i < L * N; i += THREADS) {
       const int u = i / N, n = i % N;
       bs[u * (N + 1) + n] = bg[(size_t)t0 * N + i];
@@ -169,39 +178,43 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    for (int i = tid; i < L * P; i += THREADS) {
-      const int t = i / P, p = i % P;
+    for (int i = tid; i < L * W; i += THREADS) {
+      const int t = i / W, p = i % W;
       float acc = 0.f;
-      for (int u = 0; u <= t; ++u) acc += ms[t * (L + 1) + u] * xs[u * P + p];
+      for (int u = 0; u <= t; ++u) acc += ms[t * (L + 1) + u] * xs[u * W + p];
       float inc = 0.f;
-      for (int n = 0; n < N; ++n) inc += cs[t * N + n] * st[n * P + p];
+      for (int n = 0; n < N; ++n) inc += cs[t * N + n] * st[n * W + p];
       yg[(size_t)(t0 + t) * P + p] = acc + expf(cum[t]) * inc;
     }
     __syncthreads();  // every read of the incoming state is done
 
     const float decay = expf(cum_last);
-    for (int i = tid; i < N * P; i += THREADS) {
-      const int n = i / P, p = i % P;
+    for (int i = tid; i < N * W; i += THREADS) {
+      const int n = i / W, p = i % W;
       float acc = 0.f;
       for (int u = 0; u < L; ++u)
-        acc += bs[u * (N + 1) + n] * ws[u] * xs[u * P + p];
+        acc += bs[u * (N + 1) + n] * ws[u] * xs[u * W + p];
       st[i] = decay * st[i] + acc;
     }
   }
 }
 
+bool takes(int P, int k) { return k >= 1 && P % k == 0; }
+
 cudaError_t launch(const void* x, const void* dt, const void* a,
                    const void* b, const void* c, void* y, int batch, int h,
-                   int g, int s, int L, int N, int P, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * shared_floats(L, N, P);
+                   int g, int s, int L, int N, int P, int k,
+                   cudaStream_t stream) {
+  if (!takes(P, k)) return cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * shared_floats(L, N, P / k);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  ssd_kernel<<<batch * h, THREADS, bytes, stream>>>(
+  ssd_kernel<<<batch * h * k, THREADS, bytes, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<float*>(y), h, g, s, L, N,
-      P);
+      P, k);
   return cudaGetLastError();
 }
 
@@ -776,15 +789,16 @@ const char* kernel_error_string(int err) {
 // head); -1 for a shape that kernel does not take.
 long long ssd_scan_shared_bytes(int L, int N, int P, int k, int dtype) {
   if (dtype == 0)
-    return k == 1 ? (long long)(sizeof(float) * fp32::shared_floats(L, N, P))
-                  : -1;
+    return fp32::takes(P, k)
+               ? (long long)(sizeof(float) * fp32::shared_floats(L, N, P / k))
+               : -1;
   if (!tc::takes(N, P, k)) return -1;
   return (long long)tc::shared_bytes((L + 15) & ~15, tc::state_rows(N),
                                      tc::tile_width(P / k));
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, b, c and y alike; dt and a are
-// float32); k: blocks per (batch, head), 1 for float32.  Returns
+// float32); k: blocks per (batch, head).  Returns
 // cudaGetLastError() after the launch as an int.
 int ssd_scan_launch(const void* x, const void* dt, const void* a,
                     const void* b, const void* c, void* y, int batch, int h,
@@ -792,11 +806,9 @@ int ssd_scan_launch(const void* x, const void* dt, const void* a,
                     void* stream) {
   (void)cudaGetLastError();  // clear any stale error before this launch
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (k != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
     return static_cast<int>(
-        fp32::launch(x, dt, a, b, c, y, batch, h, g, s, L, N, P, st));
-  }
+        fp32::launch(x, dt, a, b, c, y, batch, h, g, s, L, N, P, k, st));
   return static_cast<int>(
       tc::launch(x, dt, a, b, c, y, batch, h, g, s, L, N, P, k, st));
 }

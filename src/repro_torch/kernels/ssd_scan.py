@@ -12,7 +12,9 @@ refused launch or an input it does not take never falls back.  Which
 kernel runs is decided by dtype alone: bfloat16 runs on the tensor cores
 (``mma.sync``, a cp.async tile ring, ``k`` blocks per (batch, head) from
 ``plan``), float32 keeps the scalar-FMA kernel, one block per (batch,
-head), so that it agrees with ``plain`` to 3e-4.  dt and a are read as
+head) or, where its tiles do not fit one block (d_state 128 at chunk
+128), the fewest ``k`` that do, so that it agrees with ``plain`` to
+3e-4.  dt and a are read as
 float32, as the reference's kernel reads them.  On CPU tensors it runs
 ``plain``, the ported ``ssd_chunked_ref``.  ``launches`` counts the
 kernel's launches, one per call.
@@ -65,16 +67,17 @@ def shared_bytes(chunk: int, n: int, p: int, k: int, dtype) -> int | None:
     does not take.  ``n`` and ``p`` as the kernel sees them
     (``kernel_dims``).
 
-    float32 (k = 1): float32 state [N][P], x [L][P], b [L][N+1], c [L][N],
+    float32: float32 state [N][P/k], x [L][P/k], b [L][N+1], c [L][N],
     the score tile [L][L+1], cum, dt and w [L].  bfloat16, with L, N and
     P / k padded to LP (a multiple of 16), NP (``STATE_ROWS``) and W
     (``TILE_WIDTHS``) and rows padded by 8 elements: x [2][LP][W+8], b and
     c [2][LP][NP+8] each, the state's hi and lo halves [NP][W+8] each (all
     bf16), dt [2][LP] and cum, exp(cum) and w [3][LP] (float32)."""
     if dtype == torch.float32:
-        if k != 1:
+        if k < 1 or p % k:
             return None
-        return 4 * (n * p + chunk * p + chunk * (n + 1) + chunk * n
+        w = p // k
+        return 4 * (n * w + chunk * w + chunk * (n + 1) + chunk * n
                     + chunk * (chunk + 1) + 3 * chunk)
     pc = p // k if k > 0 and p % k == 0 else 0
     if n % 8 or n > STATE_ROWS[-1] or not pc or pc % 8 \
@@ -89,11 +92,11 @@ def shared_bytes(chunk: int, n: int, p: int, k: int, dtype) -> int | None:
 
 def splits(chunk: int, n: int, p: int, dtype) -> list[int]:
     """Every k (blocks per (batch, head)) whose block fits
-    ``SHARED_LIMIT_BYTES`` at this shape, smallest first: 1 for float32;
-    for bfloat16, the k that cut the padded P into equal slices of 8 to 64
-    columns."""
+    ``SHARED_LIMIT_BYTES`` at this shape, smallest first: for float32, the
+    k that divide P; for bfloat16, the k that cut the padded P into equal
+    slices of 8 to 64 columns."""
     n, p = kernel_dims(n, p, dtype)
-    ks = [1] if dtype == torch.float32 else range(1, p // 8 + 1)
+    ks = range(1, p + 1) if dtype == torch.float32 else range(1, p // 8 + 1)
     return [k for k in ks
             if (nb := shared_bytes(chunk, n, p, k, dtype)) is not None
             and nb <= SHARED_LIMIT_BYTES]
@@ -102,8 +105,10 @@ def splits(chunk: int, n: int, p: int, dtype) -> list[int]:
 def plan(bh: int, chunk: int, n: int, p: int, dtype, *,
          split: int | None = None) -> tuple[int, int, int]:
     """``(k, threads, shared_bytes)`` of a launch over ``bh`` (batch,
-    head) pairs: float32 runs one scalar block per pair; bfloat16 ``k``
-    tensor-core blocks per pair, each owning P / k columns of the state.
+    head) pairs, ``k`` blocks per pair, each owning P / k columns of the
+    state: float32 takes the smallest k that fits (1 up to d_state 64 at
+    chunk 128, 2 at d_state 128), scalar blocks; bfloat16 picks k by
+    measured time (``_pick``), tensor-core blocks.
     ``split`` asks for one k (it must fit).  Raises ``ValueError`` when
     nothing fits."""
     fits = splits(chunk, n, p, dtype)
@@ -118,7 +123,7 @@ def plan(bh: int, chunk: int, n: int, p: int, dtype, *,
                              f"{n}, P {p} in {dtype}: {fits} do")
         k = split
     elif dtype == torch.float32:
-        k = 1
+        k = fits[0]
     else:
         k = _pick(bh, fits)
     threads = SCALAR_THREADS if dtype == torch.float32 else TC_THREADS
@@ -185,7 +190,7 @@ def _aligned(t):
 def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, split: int | None = None):
     """x: (B, H, S, P); dt: (B, H, S); a: (H,); b, c: (B, G, S, N) with
     H % G == 0.  Returns y: (B, H, S, P) in x.dtype.  ``split`` forces the
-    bfloat16 kernel's k (tests and timings only; ``plan`` picks it)."""
+    kernel's k (tests and timings only; ``plan`` picks it)."""
     global launches
     _check(x, dt, a, b, c, chunk)
     if x.device.type == "cpu":

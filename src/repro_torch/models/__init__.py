@@ -1,8 +1,8 @@
 """Model zoo of the port: the layer-pattern architectures of
 ``repro.models`` in PyTorch, on the hand-written CUDA kernels.  Ported so
-far: dense attention, Mamba-2 and the Zamba-2 hybrid (forward, loss,
-prefill, decode); MoE, cross-attention and the encoders are not in the
-port yet."""
+far: dense attention (with sliding windows), mixture of experts, Mamba-2
+and the Zamba-2 hybrid (forward, loss, prefill, decode); cross-attention
+and the encoders are not in the port yet."""
 from repro_torch.models.config import (KINDS, ModelConfig, MoEConfig,
                                        SSMConfig, smoke_config)
 from repro_torch.models.model import (abstract_params, decode_step, forward,

@@ -5,7 +5,10 @@ The reference keeps a stage's repeats on a leading axis of every leaf
 (``stages[i][str(j)]`` dicts of ``(reps, ...)`` arrays); the port keeps a
 list with one unit dict per repeat.  ``from_reference`` turns the
 reference's parameter tree, given as numpy arrays, into the port's
-tensors; ``to_reference`` is its inverse.  ``config_from_reference`` /
+tensors; ``to_reference`` is its inverse.  Both walk the trees as they
+find them, so every layer kind's subtree (attention with its QKV biases,
+the MLP, the experts with a shared expert, Mamba) crosses alike.
+``config_from_reference`` /
 ``config_to_reference`` carry a ``ModelConfig`` across as its fields,
 mapping ``attn_impl`` between the reference's ``"xla"`` / ``"pallas"`` and
 the port's ``"torch"`` / ``"cuda"``.  No module here imports the

@@ -9,12 +9,14 @@ distribution slice; nothing reads them yet.
 
 The routing of ``attention_call`` and ``mamba_block`` is the reference's:
 calls with a cache (prefill, decode) take the plain routes, and only the
-cache-free forward reaches the kernels.  ``moe_block`` and the cross-
-attention / encoder branches raise ``NotImplementedError``.
+cache-free forward reaches the kernels.  ``moe_block`` is plain torch,
+as the reference's is plain XLA (it has no Pallas kernel).  The
+cross-attention branch raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -24,8 +26,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
 
-UNPORTED = ("the rest of the model zoo (MoE, cross-attention, encoders) "
-            "is not in the port yet")
+UNPORTED = ("cross-attention and encoders (whisper-small, "
+            "llama-3.2-vision-11b) are not in the port yet")
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +268,96 @@ def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
     return x, new_cache
 
 
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-bounded scatter dispatch)
+# ---------------------------------------------------------------------------
+def moe_meta(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    e = cfg.moe
+    p = {
+        "router": ParamMeta((d, e.n_experts), ("embed", "experts")),
+        "wg": ParamMeta((e.n_experts, d, e.d_ff_expert),
+                        ("experts", "embed", "expert_ff")),
+        "wu": ParamMeta((e.n_experts, d, e.d_ff_expert),
+                        ("experts", "embed", "expert_ff")),
+        "wd": ParamMeta((e.n_experts, e.d_ff_expert, d),
+                        ("experts", "expert_ff", "embed")),
+        "ln": norm_meta(cfg),
+    }
+    if e.shared_expert:
+        p["shared"] = {k: v for k, v in
+                       mlp_meta(cfg, d_ff=e.d_ff_expert).items()
+                       if k != "ln"}
+    return p
+
+
+def top_k(gates, k: int):
+    """The k largest gates per row and their expert ids, ties broken
+    towards the lower id as ``jax.lax.top_k`` breaks them (a stable
+    descending sort; ``torch.topk`` promises no order among equals)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def moe_block(cfg: ModelConfig, p, x):
-    raise NotImplementedError(f"moe_block is not ported yet: {UNPORTED}")
+    """Token-choice top-k MoE with capacity-bounded scatter dispatch.
+
+    Each of the T*k (token, choice) pairs, in token-major order, takes the
+    next free slot of its expert (a running count); pairs past the
+    capacity fall through on the residual, adding zeros at slot cap - 1.
+    Tokens are scattered into an (E, C, d) buffer, the experts run as
+    grouped einsums, and the outputs are gathered back and combined with
+    their routing weights.  Everything stays on the device: masks are
+    ``torch.where``, never boolean indexing.  Returns (x, aux), aux the
+    Switch-style load-balance loss of the first choices."""
+    e = cfg.moe
+    b, s, d = x.shape
+    y = apply_norm(cfg, p["ln"], x)
+    t = b * s
+    yt = y.reshape(t, d)
+
+    logits = (yt @ p["router"]).float()
+    gates = torch.softmax(logits, dim=-1)                      # (T, E)
+    weights, experts = top_k(gates, e.top_k)                   # (T, k)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                    min=1e-9)
+
+    cap = max(math.ceil(t * e.top_k * e.capacity_factor / e.n_experts), 4)
+    flat_e = experts.reshape(-1)                               # (T*k,)
+    onehot = F.one_hot(flat_e, e.n_experts)
+    slot = torch.gather(torch.cumsum(onehot, dim=0), 1,
+                        flat_e[:, None])[:, 0] - 1             # (T*k,)
+    keep = slot < cap
+    slot_c = torch.where(keep, slot, cap - 1)
+
+    tok_idx = torch.arange(t, device=x.device).repeat_interleave(e.top_k)
+    buf = torch.zeros((e.n_experts, cap, d), dtype=y.dtype, device=x.device)
+    buf.index_put_((flat_e, slot_c),
+                   torch.where(keep[:, None], yt[tok_idx], 0),
+                   accumulate=True)
+
+    h = torch.einsum("ecd,edf->ecf", buf, p["wg"])
+    h = F.silu(h) * torch.einsum("ecd,edf->ecf", buf, p["wu"])
+    out_buf = torch.einsum("ecf,efd->ecd", h, p["wd"])         # (E, C, d)
+
+    gathered = out_buf[flat_e, slot_c]                         # (T*k, d)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    wflat = weights.reshape(-1)
+    combined = torch.zeros((t, d), dtype=gathered.dtype, device=x.device)
+    combined.index_add_(0, tok_idx,
+                        gathered * wflat[:, None].to(gathered.dtype))
+
+    out = x + combined.reshape(b, s, d).to(x.dtype)
+    if e.shared_expert:
+        sp = p["shared"]
+        hs = F.silu(y @ sp["wg"]) * (y @ sp["wu"])
+        out = out + (hs @ sp["wd"]).to(x.dtype)
+
+    # load-balance auxiliary loss (Switch-style), first choices only
+    me = torch.mean(F.one_hot(experts[:, 0], e.n_experts).float(), dim=0)
+    ce = torch.mean(gates, dim=0)
+    aux = e.n_experts * torch.sum(me * ce)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,10 @@ def _check_device(cfg: ModelConfig, device) -> None:
 # Parameter metadata for the whole model
 # ---------------------------------------------------------------------------
 def _block_meta(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "attn":
+        return {"attn": L.attn_meta(cfg), "mlp": L.mlp_meta(cfg)}
+    if kind == "moe":
+        return {"attn": L.attn_meta(cfg), "moe": L.moe_meta(cfg)}
     if kind in ("mamba", "hybrid"):
         return {"mamba": L.mamba_meta(cfg)}   # shared attn lives at top level
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
@@ -101,9 +105,21 @@ def abstract_params(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 def _block_forward(cfg: ModelConfig, kind: str, p, x, *, positions,
                    shared=None, cache=None, pos=None):
-    """Returns (x, new_cache or None)."""
+    """Returns (x, aux_loss or None, new_cache or None)."""
+    aux = None
     new_cache: dict = {}
-    if kind in ("mamba", "hybrid"):
+    if kind in ("attn", "moe"):
+        c_self = cache.get("self") if cache else None
+        x, nc = L.attn_block(cfg, p["attn"], x, causal=True,
+                             window=cfg.sliding_window, positions=positions,
+                             cache=c_self, pos=pos)
+        if nc is not None:
+            new_cache["self"] = nc
+        if kind == "moe":
+            x, aux = L.moe_block(cfg, p["moe"], x)
+        else:
+            x = L.apply_mlp(cfg, p["mlp"], x)
+    elif kind in ("mamba", "hybrid"):
         c_m = cache.get("mamba") if cache else None
         x, nc = L.mamba_block(cfg, p["mamba"], x, cache=c_m)
         if nc is not None:
@@ -118,13 +134,15 @@ def _block_forward(cfg: ModelConfig, kind: str, p, x, *, positions,
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
                                   f"{L.UNPORTED}")
-    return x, (new_cache if cache is not None else None)
+    return x, aux, (new_cache if cache is not None else None)
 
 
 def _run_stage(cfg: ModelConfig, unit: tuple[str, ...], stage_params, x, *,
                positions, shared=None, cache=None, pos=None):
     """Loop one stage over its repeats.  ``cache`` (if any) is a list with
-    one unit cache per repeat; so are the returned new caches."""
+    one unit cache per repeat; so are the returned new caches.  Returns
+    (x, the stage's summed auxiliary loss, new caches)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if cache is not None else None
     for r, p_unit in enumerate(stage_params):
         p_unit = cast_for_compute(p_unit)
@@ -132,14 +150,16 @@ def _run_stage(cfg: ModelConfig, unit: tuple[str, ...], stage_params, x, *,
         new_c = {}
         for i, kind in enumerate(unit):
             ci = c_unit[str(i)] if c_unit is not None else None
-            x, nc = _block_forward(cfg, kind, p_unit[str(i)], x,
-                                   positions=positions, shared=shared,
-                                   cache=ci, pos=pos)
+            x, a, nc = _block_forward(cfg, kind, p_unit[str(i)], x,
+                                      positions=positions, shared=shared,
+                                      cache=ci, pos=pos)
+            if a is not None:
+                aux = aux + a
             if nc is not None:
                 new_c[str(i)] = nc
         if new_cache is not None:
             new_cache.append(new_c)
-    return x, new_cache
+    return x, aux, new_cache
 
 
 @torch.no_grad()
@@ -160,17 +180,18 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
     shared = params.get("shared_attn")
     if shared is not None:
         shared = cast_for_compute(shared)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
     for si, (unit, _reps) in enumerate(cfg.stages):
         c = caches[si] if caches is not None else None
-        x, nc = _run_stage(cfg, unit, params["stages"][si], x,
-                           positions=positions, shared=shared, cache=c,
-                           pos=pos)
+        x, aux, nc = _run_stage(cfg, unit, params["stages"][si], x,
+                                positions=positions, shared=shared, cache=c,
+                                pos=pos)
+        aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux, new_caches, memory
+    return x, aux_total, new_caches, memory
 
 
 @torch.no_grad()
@@ -246,7 +267,10 @@ def stage_cache(cfg: ModelConfig, unit, reps: int, batch: int, max_seq: int,
         c_unit = {}
         for i, kind in enumerate(unit):
             c: dict = {}
-            if kind in ("mamba", "hybrid"):
+            if kind in ("attn", "moe"):
+                c["self"] = {"k": arr((batch, hkv, max_seq, hd)),
+                             "v": arr((batch, hkv, max_seq, hd))}
+            elif kind in ("mamba", "hybrid"):
                 s = cfg.ssm
                 gn = s.n_groups * s.d_state
                 c["mamba"] = {

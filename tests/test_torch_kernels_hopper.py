@@ -20,8 +20,10 @@ chunks and widths that do not tile by 16 (through ``ops.ssd`` too), in
 the fast- and slow-decay regimes, at d_state 128 and at every split of
 P the planner allows; and every ``noc_step`` mode split over clusters of
 more than one CTA, which the main path picks only at 1024 PEs, against
-the twin.  This file imports no jax, so on the card it runs without the
-suite's conftest::
+the twin; and the decoder-only model zoo at smoke size (dense, sliding
+window, MoE, SSM) through its kernels against the plain route, with each
+forward's launches counted.  This file imports no jax, so on the card it
+runs without the suite's conftest::
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda \\
         tests/test_torch_kernels_hopper.py
@@ -190,15 +192,18 @@ def test_ssd_plan_matches_a_hand_computed_layout():
         2 * 48 * 24 * 2 + 2 * 2 * 48 * 40 * 2 + 2 * 32 * 24 * 2
         + 2 * 48 * 4 + 3 * 48 * 4) == 24_000
     # float32: the scalar kernel's float32 tiles, one block per (b, h)
+    # where they fit; at k = 2 each block holds 32 columns of x and state
     assert t_ssd.shared_bytes(128, 64, 64, 1, F32) == 4 * (
         64 * 64 + 128 * 64 + 128 * 65 + 128 * 64 + 128 * 129 + 3 * 128)
     assert t_ssd.plan(128, 128, 64, 64, F32) == (
         1, t_ssd.SCALAR_THREADS, 182_784)
+    assert t_ssd.shared_bytes(128, 64, 64, 2, F32) == 182_784 - 4 * (
+        64 * 32 + 128 * 32)
     # splits the kernel does not take: columns not in slices of 8..64
     for k in (3, 16):
         assert t_ssd.shared_bytes(128, 64, 64, k, BF16) is None
     assert t_ssd.shared_bytes(128, 64, 128, 1, BF16) is None
-    assert t_ssd.shared_bytes(128, 64, 64, 2, F32) is None
+    assert t_ssd.shared_bytes(128, 64, 64, 3, F32) is None
     assert t_ssd.splits(128, 64, 64, BF16) == [1, 2, 4, 8]
     # P and N that are not multiples of 8 are padded: P 20 -> 24 (k 1, 3)
     assert t_ssd.splits(32, 12, 20, BF16) == [1, 3]
@@ -220,13 +225,19 @@ def test_ssd_plan_on_zamba2_and_a_large_batch():
 
 def test_ssd_plan_fits_d_state_128():
     # mamba2-1.3b (src/repro/configs/mamba2_1_3b.py): N 128, P 64, chunk
-    # 128, which the float32 kernel refuses
+    # 128.  One float32 block would take 4 * (8 192 + 8 192 + 16 512 +
+    # 16 384 + 16 512 + 384) bytes, past the limit; two blocks per (b, h)
+    # halve the state and x and fit with 512 bytes to spare.
     k, _, nbytes = t_ssd.plan(64, 128, 128, 64, BF16)
     assert nbytes <= t_ssd.SHARED_LIMIT_BYTES
     assert t_ssd.shared_bytes(128, 128, 64, 1, BF16) == 215_552
     assert t_ssd.splits(128, 128, 64, BF16) == [1, 2, 4, 8]
-    with pytest.raises(ValueError, match="shared memory"):
-        t_ssd.plan(64, 128, 128, 64, F32)
+    assert t_ssd.shared_bytes(128, 128, 64, 1, F32) == 264_704 > \
+        t_ssd.SHARED_LIMIT_BYTES
+    assert t_ssd.splits(128, 128, 64, F32) == [2, 4, 8, 16, 32, 64]
+    assert t_ssd.plan(128, 128, 128, 64, F32) == (
+        2, t_ssd.SCALAR_THREADS, 231_936)
+    assert t_ssd.SHARED_LIMIT_BYTES - 231_936 == 512
 
 
 def test_ssd_plan_refuses_what_cannot_fit():
@@ -234,8 +245,11 @@ def test_ssd_plan_refuses_what_cannot_fit():
         t_ssd.plan(128, 512, 256, 64, BF16)
     with pytest.raises(ValueError, match="split 3"):
         t_ssd.plan(128, 128, 64, 64, BF16, split=3)
-    with pytest.raises(ValueError, match="split 2"):
-        t_ssd.plan(128, 128, 64, 64, F32, split=2)
+    with pytest.raises(ValueError, match="split 3"):
+        t_ssd.plan(128, 128, 64, 64, F32, split=3)
+    # the float32 score tile alone passes the limit at chunk 256
+    with pytest.raises(ValueError, match="every split"):
+        t_ssd.plan(128, 256, 64, 64, F32)
     # N past the kernel's 256 state rows fits no split
     assert t_ssd.splits(16, 264, 16, BF16) == []
 
@@ -516,9 +530,52 @@ def test_ssd_bf16_every_split_matches_plain(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 8, 1, 512, 64, 128, 128),
+                                  (2, 4, 1, 256, 64, 64, 128)])
+def test_ssd_float32_every_split_matches_plain(card, case):
+    """The scalar kernel split over k blocks per (b, h): at mamba2-1.3b's
+    d_state 128 (k = 2 at the least) and at Zamba2's 64."""
+    ops = _ssd_on(card, case, seed=10, dtype=F32)
+    want = t_ssd.plain(*ops, chunk=case[-1])
+    for k in t_ssd.splits(case[-1], case[5], case[4], F32)[:3]:
+        torch.testing.assert_close(
+            t_ssd.ssd_scan(*ops, chunk=case[-1], split=k), want,
+            atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
 def test_ssd_float32_keeps_the_scalar_kernel(card):
     case = SSD_CASES[2]
     ops = _ssd_on(card, case, seed=9, dtype=F32)
     got = t_ssd.ssd_scan(*ops, chunk=case[-1])
     torch.testing.assert_close(got, t_ssd.plain(*ops, chunk=case[-1]),
                                atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen2.5-14b",
+                                  "command-r-plus-104b", "h2o-danube-1.8b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e", "mamba2-1.3b"])
+def test_zoo_smoke_forward_matches_plain_route(card, arch):
+    """One cache-free forward at smoke size launches one kernel per layer
+    and stays within the bfloat16 limits of the plain route (0.3 on
+    hidden states where a MoE token may be routed elsewhere)."""
+    from repro_torch import configs
+    from repro_torch.models import config as t_config
+    from repro_torch.models import model as t_model
+    cfg = t_config.smoke_config(configs.get(arch))
+    params = t_model.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 64), device=card,
+                        generator=torch.Generator("cuda").manual_seed(1))
+    t_flash.reset_launches()
+    t_ssd.reset_launches()
+    hk, aux_k, *_ = t_model.forward(cfg, params, tok)
+    mamba = cfg.family == "ssm"
+    assert (t_flash.launches, t_ssd.launches) == (
+        (0, cfg.n_layers) if mamba else (cfg.n_layers, 0))
+    hp, aux_p, *_ = t_model.forward(
+        dataclasses.replace(cfg, attn_impl="torch"), params, tok)
+    torch.testing.assert_close(hk.float(), hp.float(),
+                               atol=0.3 if cfg.moe else 0.1, rtol=2e-2)
+    assert abs(float(aux_k) - float(aux_p)) <= 2e-2

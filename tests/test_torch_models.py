@@ -87,10 +87,12 @@ def test_config_carries_across(setup):
 
 
 def test_other_archs_and_unported_paths_raise():
-    for name in t_configs.ARCHS:
-        if name != "zamba2-1.2b":
-            with pytest.raises(NotImplementedError, match="rest of the model zoo"):
-                t_configs.get(name)
+    for name in ("whisper-small", "llama-3.2-vision-11b"):
+        with pytest.raises(NotImplementedError,
+                           match="cross-attention and encoders"):
+            t_configs.get(name)
+    assert [n for n in t_configs.ARCHS if t_configs.ARCHS[n] is None] == [
+        "whisper-small", "llama-3.2-vision-11b"]
     with pytest.raises(KeyError):
         t_configs.get("gpt-5")
     cfg = t_configs.get("zamba2-1.2b")
@@ -98,11 +100,9 @@ def test_other_archs_and_unported_paths_raise():
         dataclasses.replace(cfg, attn_impl="seq_shard")
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(cfg, attn_impl="pallas")
-    moe = dataclasses.replace(
-        cfg, stages=((("moe",), 38),), ssm=None,
-        moe=t_config.MoEConfig(n_experts=4, top_k=2, d_ff_expert=64))
-    with pytest.raises(NotImplementedError, match="rest of the model zoo"):
-        t_model.model_meta(moe)
+    cross = dataclasses.replace(cfg, stages=((("cross",), 38),), ssm=None)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        t_model.model_meta(cross)
 
 
 def test_parameters_round_trip_with_reference_shapes(setup):
