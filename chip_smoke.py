@@ -1,12 +1,13 @@
-"""Drive the PyTorch/CUDA port (the NoC simulator, its fabric analysis
-and the model zoo's decoder-only architectures) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the NoC simulator, its fabric analysis,
+the model zoo with its cross-attention models, and the training path) on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
 Runs from a checkout of the repository, needs one CUDA device and nvcc,
 and imports nothing of jax or of the JAX reference package.  It builds the
 port's three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-each, started together) and runs fifteen phases; any failure raises and
+each, started together) and runs nineteen phases; any failure raises and
 exits non-zero.
 
 1. Device: the card's name and power limit (``nvidia-smi``), the kernels'
@@ -59,7 +60,11 @@ exits non-zero.
    at every split of P over k blocks that fits, each split's shared
    bytes (the kernel's own count) checked against ``ssd_scan.plan``; at
    d_state 128 it also runs in float32, the scalar kernel split over
-   ``plan``'s k blocks, held to its plain version within 3e-4.
+   ``plan``'s k blocks, held to its plain version within 3e-4.  Then the
+   cross-attention models' ragged lengths (none tiles by 128): whisper's
+   encoder, cross- and decoder self-attention, the vision model's
+   cross-attention and one cross decode row, each in bfloat16 (timed
+   beside SDPA and its bound) and in float32.
 9. The scoring path at full width: ``zamba2-1.2b`` (38 layers, d_model
    2048) from ``init_params`` on the card scores 2 x 4096 tokens through
    ``forward`` -> ``unembed`` and ``loss_fn``; 38 ``ssd_scan`` and 6
@@ -105,16 +110,44 @@ exits non-zero.
 15. Serving qwen2-7b (28 layers) and phi3.5-moe (4 layers), redrawn as
    in phase 13, with phase 11's recipe: every request completes, no
    kernel launches, prefill against a cache-free plain forward.
+16. The cross-attention models scored at full width, every layer:
+   whisper-small (12 encoder + 12 decoder layers, weights from
+   ``convert.init_numpy``; 16 x 448 tokens over 16 x 1 500 frames; 36
+   flash launches per forward) and llama-3.2-vision-11b (40 layers, 40.4
+   GB of float32 parameters from ``init_params`` on the card; 2 x 4 096
+   tokens over 2 x 1 600 image tokens; 48 launches), frames and image
+   embeddings seeded normals; held to the plain route as in phase 13
+   (whisper also with float32 compute); device ms, tokens/s and the
+   kernels' share per forward.
+17. The JAX anchor for them: whisper-small with one encoder and one
+   decoder layer and one vision unit (4 ``attn`` + 1 ``cross``) at full
+   width on the numpy weights and memory of
+   ``tests/data/torch_port_cross_reference.json``'s seed, held to its
+   top-10 logits and loss, and whisper's gradient (the plain route) to
+   its global and per-leaf norms.
+18. Prefill + decode of both models (phase 16's weights): 2 requests, 16
+   new tokens each, through ``prefill(frames= / img_embeds=)`` and
+   ``decode_step``; the cross layers launch the kernel at prefill and at
+   every decode step; the first decode step held to the plain route.
+19. Training at full width: mamba2-1.3b (48 layers, remat, the plain
+   route) through ``FaultTolerantTrainer`` + ``CheckpointManager`` +
+   AdamW, 4 x 2 048 tokens from ``TokenPipeline`` for 6 steps, a
+   checkpoint every 2 and one injected failure at step 3: it resumes at
+   step 2 with the pipeline's cursor restored, the restored state equals
+   the saved one bit for bit, losses and grad norms stay finite and the
+   loss falls; then two ``make_train_step`` steps of whisper-small with
+   frames in the batch.  Seconds per step, tokens/s, peak memory.
 
 Launch counts are zeroed just before each of phases 3, 5, 6, 9, 11,
-12's ``verify=True`` grid and ``measure_repair`` runs, and each model's
-run in phases 13-15, and read just after (by mode for noc_step).  Phases
+12's ``verify=True`` grid and ``measure_repair`` runs, each model's run
+in phases 13-18 and phase 19's training, and read just after (by mode
+for noc_step).  Phases
 5 and 6 split their host wall clock into its stages (topology builds,
 device geometry, streams and operands, the kernel, the reachability
 walk, the rest), phase 9 its forward's into the two kernels and the
-rest, each with its share, and phase 13 each model's.  The kernels'
-record counts the launches of phases 9, 13 and 14 for the model zoo's
-two kernels.  The line before the last is the kernels' JSON record; the
+rest, each with its share, and phases 13 and 16 each model's.  The
+kernels' record counts the launches of phases 9, 13, 14, 16, 17 and 18
+for the model zoo's two kernels.  The line before the last is the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -895,6 +928,19 @@ FLASH_SHAPES = [
     ("qwen2-7b scoring", (2, 28, 4, 4096, 4096, 128, True, None)),
     ("h2o-danube scoring", (1, 32, 8, 8192, 8192, 80, True, 4096)),
 ]
+# The cross-attention models' lengths, none of which tiles by the kernel's
+# 128-row tiles (the kernel masks the ragged tails): whisper-small's
+# encoder over 16 x 1 500 frames, its cross-attention (448 decoder rows
+# over the frames) and causal decoder self-attention, the vision model's
+# cross-attention (GQA 32/8, width 128, 2 x 4 096 rows over 1 600 image
+# tokens) and one cross decode row over whisper's frames.
+RAGGED_FLASH_SHAPES = [
+    ("whisper encoder", (16, 12, 12, 1500, 1500, 64, False, None)),
+    ("whisper cross", (16, 12, 12, 448, 1500, 64, False, None)),
+    ("whisper decoder self", (16, 12, 12, 448, 448, 64, True, None)),
+    ("vision cross", (2, 32, 8, 4096, 1600, 128, False, None)),
+    ("cross decode row", (16, 12, 12, 1, 1500, 64, False, None)),
+]
 # The SSD at mamba2-1.3b's d_state 128 (N 128, P 64, chunk 128): 8 heads
 # x 512 steps, and its scoring shape (2 x 4096 tokens, 64 heads).  Both
 # also run in float32, where the scalar kernel splits P over k blocks.
@@ -938,6 +984,15 @@ TOL = {("flash_attention", torch.float32): 2e-5,
 # elementwise within 1e-3 + 1e-3 * |plain|, the loss within 1e-3.
 SCORE_RMS_TOL, SCORE_LOSS_TOL = 0.05, 0.02
 SCORE_F32_TOL = 1e-3
+# Phase 16 holds the bfloat16 logits of both routes against the float32-
+# compute plain route, the model both approximate: the kernels' route may
+# be no farther from it than the plain route is, within 5 %.  The mutual
+# 5 % limit above does not hold at the vision model's 40 random layers
+# whatever the kernel: the two bfloat16 routes drift apart as the square
+# root of depth (on an H100: 1.7 % at 5 layers, 2.5 % at 10, 3.8 % at 20,
+# 5.7 % at 40), while each stays as far from the float32 model as the
+# other (8.41 % and 8.37 %; whisper 1.208 % and 1.206 %).
+FLOAT32_RATIO = 1.05
 # Against the JAX reference (tests/data/torch_port_model_reference.json):
 # the top-10 logits within 0.125 (four bfloat16 ulps at magnitude 4; the
 # plain route on a CPU came within 0.047), loss within 0.01 (CPU: 6e-4).
@@ -995,10 +1050,14 @@ def device_clock(targets):
 
 
 def kernel_counts(cfg) -> dict:
-    """Kernel launches one cache-free forward of ``cfg`` makes."""
+    """Kernel launches one cache-free forward of ``cfg`` makes: one flash
+    launch per self-attention, two per cross layer (its self- and its
+    cross-attention), one per encoder layer; one SSD launch per Mamba
+    block."""
     n = {k: sum(u.count(k) * r for u, r in cfg.stages)
-         for k in ("attn", "moe", "mamba", "hybrid")}
-    return {"flash_attention": n["attn"] + n["moe"] + n["hybrid"],
+         for k in ("attn", "moe", "cross", "mamba", "hybrid")}
+    return {"flash_attention": n["attn"] + n["moe"] + n["hybrid"]
+            + 2 * n["cross"] + cfg.encoder_layers,
             "ssd_scan": n["mamba"] + n["hybrid"]}
 
 
@@ -1125,7 +1184,7 @@ def sdpa_ms(q, k, v, shape) -> float:
     kernel's yardstick (the port never calls it)."""
     import torch.nn.functional as F
     b, hq, hkv, sq, skv, d, causal, window = shape
-    if sq == skv and window is None:
+    if (sq == skv or not causal) and window is None:
         kw = dict(is_causal=causal)
     else:
         q_pos = torch.arange(sq, device=DEVICE)[:, None] + (skv - sq)
@@ -1136,6 +1195,40 @@ def sdpa_ms(q, k, v, shape) -> float:
         kw = dict(attn_mask=mask)
     return event_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, enable_gqa=hq != hkv, **kw), reps=3)
+
+
+def ragged_flash(label: str, shape, gen) -> float:
+    """One ragged shape of phase 8: the kernel against its plain version
+    in bfloat16 (timed beside SDPA and its bound) and in float32.
+    Returns the largest difference."""
+    from repro_torch.kernels import flash_attention as fa
+    causal = shape[6]
+    errs, times = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attn_operands(shape, dtype, gen)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=causal)
+        errs.append(check_close("flash_attention", f"{label} {dtype}",
+                                kernel(), fa.plain(q, k, v, causal=causal)))
+        times[dtype] = event_ms(kernel, reps=5)
+        if dtype == torch.bfloat16:
+            plain_ms = event_ms(lambda: fa.plain(q, k, v, causal=causal),
+                                reps=1)
+            lib_ms = sdpa_ms(q, k, v, shape)
+        del q, k, v
+    b_ms, by = flash_bound(shape, 2)
+    ms = times[torch.bfloat16]
+    say(8, f"flash_attention {label} {shape[:6]} causal {causal} (ragged: "
+           f"{shape[3]} % 128 = {shape[3] % 128}, {shape[4]} % 128 = "
+           f"{shape[4] % 128}) bf16: kernel {ms:.4f} ms, plain "
+           f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} "
+           f"ms (kernel {ms / lib_ms:.2f}x of it), bound {b_ms:.4f} ms "
+           f"({by}, {b_ms / ms:.1%} of it), max |diff| {errs[0]:.3g} "
+           f"(limit {TOL[('flash_attention', torch.bfloat16)]}); float32 "
+           f"kernel {times[torch.float32]:.4f} ms, max |diff| {errs[1]:.3g} "
+           f"(limit {TOL[('flash_attention', torch.float32)]}) [{CARD}]")
+    return max(errs)
 
 
 def phase_kernels() -> dict:
@@ -1196,6 +1289,9 @@ def phase_kernels() -> dict:
                                           bound_ms=b_ms, bound_by=by,
                                           library_ms=lib_ms)
         del q, k, v
+    for label, shape in RAGGED_FLASH_SHAPES:
+        err["flash_attention"] = max(err["flash_attention"],
+                                     ragged_flash(label, shape, gen))
     lib = ss.load_library()
     for i, (label, shape) in enumerate(SSD_SHAPES):
         ops = ssd_operands(shape, bf16, gen)
@@ -1263,15 +1359,16 @@ def phase_kernels() -> dict:
     return out
 
 
-def timed_forward(cfg, params, tokens):
-    """forward -> unembed, synchronized: (logits, host s, device ms)."""
+def timed_forward(cfg, params, tokens, **memory):
+    """forward -> unembed, synchronized: (logits, host s, device ms).
+    ``memory``: the cross-attention source (``frames`` / ``img_embeds``)."""
     from repro_torch.models import model as M
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
     t0 = time.perf_counter()
     start.record()
-    hidden, *_ = M.forward(cfg, params, tokens)
+    hidden, *_ = M.forward(cfg, params, tokens, **memory)
     logits = M.unembed(cfg, params, hidden)
     stop.record()
     torch.cuda.synchronize()
@@ -1717,21 +1814,40 @@ def zoo_config(arch: str, depth):
                                n_layers=len(unit) * depth)
 
 
-def score(phase: int, cfg, params, tokens, f32_check: bool) -> dict:
+def rms_distance(x, ref) -> float:
+    """rms(x - ref) / rms(ref) over float32 logits, one batch row at a
+    time (``x`` may sit on the host)."""
+    num = den = 0.0
+    for i in range(ref.shape[0]):
+        r = ref[i].float()
+        num += float((x[i].to(r.device).float() - r).square().sum())
+        den += float(r.square().sum())
+    return math.sqrt(num / den)
+
+
+def score(phase: int, cfg, params, tokens, f32_check: bool,
+          memory=None, against_float32: bool = False) -> dict:
     """forward -> unembed and loss_fn through the kernels, their launches
     counted, timed and held to the plain route on the card (and with
-    float32 compute if ``f32_check``).  Returns the launches of forward +
-    loss_fn."""
+    float32 compute if ``f32_check``).  ``memory``: the batch's
+    cross-attention source, ``{"frames": ...}`` or ``{"img_embeds":
+    ...}``, in bfloat16.  With ``against_float32`` (and ``f32_check``)
+    the bfloat16 logits of both routes are held to the float32-compute
+    plain route instead of to each other (``FLOAT32_RATIO``).  Returns
+    the launches of forward + loss_fn."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import model as M
 
     name, shape = cfg.name, tuple(tokens.shape)
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    memory = memory or {}
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1),
+             **memory}
     want = kernel_counts(cfg)
     reset_counts()
     with routes() as kernel_routes:
-        logits, host_s, dev_ms = timed_forward(cfg, params, tokens)
+        logits, host_s, dev_ms = timed_forward(cfg, params, tokens,
+                                               **memory)
     per_forward = launch_counts()
     loss, parts = M.loss_fn(cfg, params, batch)
     launches = launch_counts()
@@ -1739,10 +1855,11 @@ def score(phase: int, cfg, params, tokens, f32_check: bool) -> dict:
     assert launches == {k: 2 * v for k, v in want.items()}, (name, launches)
     assert logits.shape == (*shape, cfg.vocab)
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(loss))
-    runs = [timed_forward(cfg, params, tokens)[1:] for _ in range(2)]
+    runs = [timed_forward(cfg, params, tokens, **memory)[1:]
+            for _ in range(2)]
     with device_clock(((fa, "flash_attention"),
                        (ss, "ssd_scan"))) as spent:
-        _, _, split_ms = timed_forward(cfg, params, tokens)
+        _, _, split_ms = timed_forward(cfg, params, tokens, **memory)
     kernel_ms = sum(spent.values())
     n_tok = shape[0] * shape[1]
     say(phase, f"{name}: launches per forward {per_forward}, over forward "
@@ -1761,7 +1878,7 @@ def score(phase: int, cfg, params, tokens, f32_check: bool) -> dict:
     plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
     with routes() as plain_routes:
         plain_logits, plain_s, plain_dev = timed_forward(plain_cfg, params,
-                                                         tokens)
+                                                         tokens, **memory)
     plain_loss, plain_parts = M.loss_fn(plain_cfg, params, batch)
     flipped, shares = routed_elsewhere(kernel_routes, plain_routes, shape,
                                        cfg.moe)
@@ -1772,13 +1889,20 @@ def score(phase: int, cfg, params, tokens, f32_check: bool) -> dict:
     if cfg.moe:
         alike = ~flipped.to(logits.device)
         logits, plain_logits = logits[alike], plain_logits[alike]
-    msg = logits_close(f"{name} scoring", logits, plain_logits)
+    if against_float32:
+        rel = rms_distance(logits, plain_logits)
+        msg = (f"rms difference {rel:.2e} of the rms (held below against "
+               f"the float32 model, not to phase 9's {SCORE_RMS_TOL})")
+        kept = {"kernels": logits.cpu(), "plain": plain_logits.cpu()}
+    else:
+        msg = logits_close(f"{name} scoring", logits, plain_logits)
     routing = (f"routed otherwise (other experts or past capacity) in "
                f"some layer: {share:.2%} of the tokens "
                f"(per layer {shares}); at the others " if cfg.moe else "")
     say(phase, f"{name}: kernels vs plain (plain route {plain_s:.3f} s "
-               f"host, {plain_dev:.3f} ms device), bfloat16: {routing}{msg} "
-               f"(limit {SCORE_RMS_TOL}); |d loss| {d_loss:.2e} (limit "
+               f"host, {plain_dev:.3f} ms device), bfloat16: {routing}{msg}"
+               + ("" if against_float32 else f" (limit {SCORE_RMS_TOL})")
+               + f"; |d loss| {d_loss:.2e} (limit "
                f"{loss_tol:.4f}); |d aux| {d_aux:.2e} (limit {AUX_TOL}) "
                f"[{CARD}]")
     assert d_loss <= loss_tol and d_aux <= AUX_TOL
@@ -1788,14 +1912,16 @@ def score(phase: int, cfg, params, tokens, f32_check: bool) -> dict:
     if f32_check:
         saved = M.COMPUTE_DTYPE
         M.COMPUTE_DTYPE = torch.float32
+        memory = {k: v.float() for k, v in memory.items()}
+        batch.update(memory)
         try:
             reset_counts()
             with routes() as kernel_routes:
-                got, _, f32_ms = timed_forward(cfg, params, tokens)
+                got, _, f32_ms = timed_forward(cfg, params, tokens, **memory)
             assert launch_counts() == want, (name, launch_counts())
             with routes() as plain_routes:
                 want_l, _, f32_plain_ms = timed_forward(plain_cfg, params,
-                                                        tokens)
+                                                        tokens, **memory)
             flipped, _ = routed_elsewhere(kernel_routes, plain_routes,
                                           shape, cfg.moe)
             share = float(flipped.float().mean())
@@ -1803,7 +1929,18 @@ def score(phase: int, cfg, params, tokens, f32_check: bool) -> dict:
                 alike = ~flipped.to(got.device)
                 got, want_l = got[alike], want_l[alike]
             msg = logits_close(f"{name} scoring float32", got, want_l)
-            del got, want_l
+            del got
+            if against_float32:
+                dist = {k: rms_distance(v, want_l) for k, v in kept.items()}
+                say(phase, f"{name}: bfloat16 logits against the float32-"
+                           f"compute plain route: rms distance of the "
+                           f"kernels' route {dist['kernels']:.4e}, of the "
+                           f"plain route {dist['plain']:.4e} (ratio "
+                           f"{dist['kernels'] / dist['plain']:.4f}, limit "
+                           f"{FLOAT32_RATIO})")
+                assert dist["kernels"] <= FLOAT32_RATIO * dist["plain"], dist
+                del kept
+            del want_l
             free_card()
             d_loss = abs(float(M.loss_fn(cfg, params, batch)[0])
                          - float(M.loss_fn(plain_cfg, params, batch)[0]))
@@ -1875,10 +2012,32 @@ def leaf(tree, key: str):
     return node
 
 
-def phase_zoo_anchor() -> dict:
+def zoo_cut(arch: str, e: dict):
+    """The architecture at full width cut as the zoo anchor file says."""
+    (_unit, reps), = e["cut"]["stages"]
+    return zoo_config(arch, reps)
+
+
+def draw_anchor_trees(path: str, cut) -> dict:
+    """{arch: (numpy weights, seconds)} of an anchor file's models, drawn
+    by ``convert.init_numpy`` from its seed on the host.  ``main`` runs it
+    in a thread beside the card's work of the phase before: numpy's draws
+    release the interpreter lock."""
+    from repro_torch.models import convert
+    with open(path) as f:
+        ref = json.load(f)
+    out = {}
+    for arch, e in ref["models"].items():
+        t0 = time.perf_counter()
+        out[arch] = (convert.init_numpy(cut(arch, e), ref["seed"]),
+                     time.perf_counter() - t0)
+    return out
+
+
+def phase_zoo_anchor(trees: dict) -> dict:
     """Phase 14: one layer of four architectures at full width against the
-    JAX package on the same numpy weights.  Returns the kernels'
-    launches."""
+    JAX package on the same numpy weights (``trees``, from
+    ``draw_anchor_trees``).  Returns the kernels' launches."""
     from repro_torch.models import convert
     from repro_torch.models import model as M
 
@@ -1886,11 +2045,10 @@ def phase_zoo_anchor() -> dict:
         ref = json.load(f)
     total = {"flash_attention": 0, "ssd_scan": 0}
     for arch, e in ref["models"].items():
-        (unit, reps), = e["cut"]["stages"]
-        cfg = zoo_config(arch, reps)
+        cfg = zoo_cut(arch, e)
         assert cfg.param_count() == e["cut"]["param_count"], arch
         t0 = time.perf_counter()
-        tree = convert.init_numpy(cfg, ref["seed"])
+        tree, drawn = trees.pop(arch)
         for key, want in e["weights"].items():
             v = leaf(tree, key)
             assert v.reshape(-1)[:4].tolist() == want["head"], (arch, key)
@@ -1901,9 +2059,9 @@ def phase_zoo_anchor() -> dict:
         del tree
         say(14, f"{arch}: {cfg.param_count()} parameters ({cfg.n_layers} "
                 f"layer at full width) redrawn from seed {ref['seed']} "
-                f"(fingerprint of {len(e['weights'])} leaves equal to the "
-                f"reference's) and moved to the card in "
-                f"{time.perf_counter() - t0:.3f} s")
+                f"(in {drawn:.3f} s on the host during phase 13; fingerprint "
+                f"of {len(e['weights'])} leaves equal to the reference's) "
+                f"and moved to the card in {time.perf_counter() - t0:.3f} s")
         tokens = torch.tensor(e["tokens"], device=DEVICE)
         labels = torch.tensor(e["labels"], device=DEVICE)
         reset_counts()
@@ -1975,6 +2133,474 @@ def phase_zoo_serving() -> None:
         free_card()
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-19: cross-attention and the encoders; the training path.
+# ---------------------------------------------------------------------------
+CROSS_REFERENCE = os.path.join(ROOT, "tests", "data",
+                               "torch_port_cross_reference.json")
+CROSS_SEED = 17
+# (architecture, batch, tokens), every layer at the published widths:
+# whisper-small's 16 x 448 decoder tokens over 16 x 1 500 frames, the
+# vision model's 2 x 4 096 tokens over 2 x 1 600 image tokens.  The frames
+# and image embeddings are seeded normals, stubs in the reference too.
+CROSS = [("whisper-small", 16, 448), ("llama-3.2-vision-11b", 2, 4096)]
+# Phase 18: 2 requests per model, prompts of these lengths, 16 new tokens.
+CROSS_PROMPT = {"whisper-small": 64, "llama-3.2-vision-11b": 256}
+CROSS_NEW_TOKENS = 16
+# Phase 17, the gradient against the JAX reference's (whisper-small, one
+# encoder and one decoder layer, bfloat16 compute in both, the port's
+# plain route): each recorded norm within this relative difference.  The
+# port's plain route on a CPU comes within 4.6e-6 on the global norm and
+# 1.1e-3 on the leaves (the encoder's final norm scale); the limit is nine
+# times that, for cuBLAS's other summation orders in bfloat16.
+GRAD_NORM_TOL = 0.01
+# Phase 19: mamba2-1.3b, the default --arch of the reference's
+# launch/train.py, at full width and depth; AdamW as launch/train.py
+# builds it but with 2 warm-up steps (its 100 would keep the learning
+# rate too small to move the loss in 6 steps); one injected failure.
+TRAIN = dict(arch="mamba2-1.3b", batch=4, seq=2048, steps=6,
+             checkpoint_every=2, fail_at=3, lr=1e-3, warmup_steps=2,
+             seed=19)
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+WHISPER_TRAIN = dict(batch=4, seq=448, steps=2)
+
+
+def memory_input(cfg, batch: int, gen) -> dict:
+    """The batch's cross-attention source, seeded normals in bfloat16:
+    ``{"frames": ...}`` or ``{"img_embeds": ...}``."""
+    key = "frames" if cfg.encoder_layers else "img_embeds"
+    rows = cfg.encoder_seq or cfg.n_img_tokens
+    return {key: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                             device=DEVICE).to(torch.bfloat16)}
+
+
+def named(tree, key: str):
+    """A leaf of a reference-layout tree by its dotted path (list indices
+    as numbers), as the anchor files name them."""
+    node = tree
+    for part in key.split("."):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node
+
+
+def check_fingerprint(label: str, v, want: dict) -> None:
+    assert np.asarray(v).reshape(-1)[:4].tolist() == want["head"], label
+    assert math.isclose(float(np.sum(v, dtype=np.float64)), want["sum"],
+                        rel_tol=1e-9, abs_tol=1e-9), label
+
+
+def cross_params(cfg):
+    """Phase 16's weights: whisper-small through ``convert.init_numpy``
+    on the host; the vision model from ``init_params`` on the card, since
+    its 10.1 billion numpy draws would take minutes of host time (the
+    rate is measured on whisper's draws and printed)."""
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    if cfg.encoder_layers:
+        tree = convert.init_numpy(cfg, CROSS_SEED)
+        drawn = time.perf_counter() - t0
+        params = convert.from_reference(cfg, tree, DEVICE)
+        torch.cuda.synchronize()
+        n = sum(v.size for v in M.L.tree_leaves(tree))
+        rate = n / drawn
+        vision = zoo_config("llama-3.2-vision-11b", None).param_count()
+        say(16, f"{cfg.name}: {n} parameters drawn by convert.init_numpy "
+                f"from seed {CROSS_SEED} in {drawn:.3f} s ({rate / 1e6:.1f} "
+                f"M/s on this host; the vision model's {vision} would take "
+                f"{vision / rate:.0f} s) and moved to the card in "
+                f"{time.perf_counter() - t0 - drawn:.3f} s")
+        return params
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        CROSS_SEED), DEVICE)
+    torch.cuda.synchronize()
+    say(16, f"{cfg.name}: {cfg.param_count()} parameters "
+            f"({4 * cfg.param_count() / 1e9:.1f} GB of float32 master "
+            f"parameters, all {cfg.n_layers} layers) from init_params on "
+            f"the card in {time.perf_counter() - t0:.3f} s")
+    return params
+
+
+def phase_cross_scoring() -> tuple[dict, dict]:
+    """Phase 16: whisper-small and llama-3.2-vision-11b scored at full
+    width through the kernels, held to the plain route.  Returns (the
+    launches of forward + loss_fn summed, {arch: (config, params)})."""
+    t0 = time.perf_counter()
+    total = {"flash_attention": 0, "ssd_scan": 0}
+    models = {}
+    for arch, batch, seq in CROSS:
+        cfg = zoo_config(arch, None)
+        params = cross_params(cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(CROSS_SEED + 1)
+        tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                               device=DEVICE)
+        memory = memory_input(cfg, batch, gen)
+        (key, mem), = memory.items()
+        say(16, f"{arch}: {cfg.n_layers} decoder layers"
+                + (f" + {cfg.encoder_layers} encoder layers" if
+                   cfg.encoder_layers else "")
+                + f", d_model {cfg.d_model}; {batch} x {seq} tokens over "
+                f"{key} {tuple(mem.shape)}; flash launches per forward "
+                f"{kernel_counts(cfg)['flash_attention']}")
+        for k, v in score(16, cfg, params, tokens, f32_check=True,
+                          memory=memory, against_float32=True).items():
+            total[k] += v
+        models[arch] = (cfg, params)
+        free_card()
+    say(16, f"{len(CROSS)} architectures scored in "
+            f"{time.perf_counter() - t0:.1f} s host wall clock; launches "
+            f"{total} [{CARD}]")
+    return total, models
+
+
+def cross_cut(arch: str, e: dict):
+    """The architecture at full width cut as the anchor file says."""
+    (unit, reps), = e["cut"]["stages"]
+    return dataclasses.replace(zoo_config(arch, None),
+                               stages=((tuple(unit), reps),),
+                               n_layers=e["cut"]["n_layers"],
+                               encoder_layers=e["cut"]["encoder_layers"])
+
+
+def grad_norms(cfg, params, batch) -> dict:
+    """The gradient of loss_fn through the plain route (the kernels have
+    no backward), as the anchor file records it: its global norm and the
+    norm of every xattn and encoder leaf."""
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+    live = M.L.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = M.loss_fn(plain_cfg, live, batch)
+    grads = torch.autograd.grad(loss, M.L.tree_leaves(live))
+    it = iter(g.float() for g in grads)
+    tree = convert.to_reference(cfg, M.L.tree_map(lambda _: next(it),
+                                                  params))
+    out = {"global": float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                          for g in grads)))}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}.{i}")
+        elif prefix.startswith(".encoder") or ".xattn." in prefix:
+            out[prefix[1:]] = float(np.linalg.norm(
+                node.reshape(-1).astype(np.float64)))
+    walk(tree, "")
+    return out, float(loss.detach())
+
+
+def phase_cross_anchor(trees: dict) -> dict:
+    """Phase 17: whisper-small (one encoder and one decoder layer) and one
+    vision unit at full width against the JAX package on the same numpy
+    weights (``trees``, from ``draw_anchor_trees``) and memory; whisper's
+    gradient too.  Returns the kernels' launches."""
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+
+    with open(CROSS_REFERENCE) as f:
+        ref = json.load(f)
+    total = {"flash_attention": 0, "ssd_scan": 0}
+    for arch, e in ref["models"].items():
+        cfg = cross_cut(arch, e)
+        assert cfg.param_count() == e["cut"]["param_count"], arch
+        t0 = time.perf_counter()
+        tree, drawn = trees.pop(arch)
+        for key, want in e["weights"].items():
+            check_fingerprint(f"{arch} {key}", named(tree, key), want)
+        m = e["memory"]
+        mem = np.random.default_rng(ref["seed"] + 2).standard_normal(
+            tuple(m["shape"]), dtype=np.float32)
+        check_fingerprint(f"{arch} {m['key']}", mem, m)
+        params = convert.from_reference(cfg, tree, DEVICE)
+        del tree
+        say(17, f"{arch}: {cfg.param_count()} parameters ({e['cut']['note']}"
+                f") and its {m['key']} {tuple(m['shape'])} redrawn from seed "
+                f"{ref['seed']} (the weights in {drawn:.3f} s on the host "
+                f"during phase 16; fingerprint of {len(e['weights'])} leaves "
+                f"equal to the reference's) and moved to the card in "
+                f"{time.perf_counter() - t0:.3f} s")
+        memory = {m["key"]: torch.from_numpy(mem).to(DEVICE).to(
+            torch.bfloat16)}
+        batch = {"tokens": torch.tensor(e["tokens"], device=DEVICE),
+                 "labels": torch.tensor(e["labels"], device=DEVICE),
+                 **memory}
+        reset_counts()
+        hidden, *_ = M.forward(cfg, params, batch["tokens"], **memory)
+        logits = M.unembed(cfg, params, hidden).float()
+        loss, _ = M.loss_fn(cfg, params, batch)
+        for k, v in launch_counts().items():
+            total[k] += v
+        assert launch_counts() == {
+            k: 2 * v for k, v in kernel_counts(cfg).items()}, arch
+        err, top1 = 0.0, 0
+        for t in e["top_logits"]:
+            row = logits[t["row"], t["pos"]]
+            err = max(err, float((row[t["ids"]] - torch.tensor(
+                t["logits"], device=DEVICE)).abs().max()))
+            top1 += int(torch.argmax(row)) == t["ids"][0]
+        n = len(e["top_logits"])
+        d_loss = abs(float(loss) - e["loss"])
+        say(17, f"{arch} vs the reference (jax {ref['jax_version']}, "
+                f"attn_impl {ref['attn_impl']}, {tuple(batch['tokens'].shape)}"
+                f" tokens, {launch_counts()['flash_attention']} flash "
+                f"launches over forward + loss_fn): top-10 logits max |diff| "
+                f"{err:.4f} (limit {ANCHOR_LOGIT_TOL}), top-1 id equal at "
+                f"{top1} of {n}; loss {float(loss):.6f} vs {e['loss']:.6f} "
+                f"(limit {ANCHOR_LOSS_TOL}) [{CARD}]")
+        assert err <= ANCHOR_LOGIT_TOL and d_loss <= ANCHOR_LOSS_TOL
+        assert top1 >= n - 1
+        if "grad_norms" in e:
+            got, plain_loss = grad_norms(cfg, params, batch)
+            rel = {k: abs(got[k] - w) / w for k, w in e["grad_norms"].items()}
+            worst = max(rel, key=rel.get)
+            say(17, f"{arch} gradient (plain route, loss {plain_loss:.6f}): "
+                    f"global norm {got['global']:.6f} vs "
+                    f"{e['grad_norms']['global']:.6f} (relative "
+                    f"{rel['global']:.2e}); {len(rel) - 1} xattn and encoder "
+                    f"leaf norms, largest relative difference "
+                    f"{rel[worst]:.2e} at {worst} (limit {GRAD_NORM_TOL})")
+            assert all(math.isfinite(v) for v in got.values())
+            assert max(rel.values()) <= GRAD_NORM_TOL, rel
+        del params, logits, hidden
+        free_card()
+    return total
+
+
+def phase_cross_serving(models: dict) -> dict:
+    """Phase 18: two requests per model through ``prefill(frames= /
+    img_embeds=)`` and ``decode_step``, greedy; the cross layers reach the
+    kernel at prefill and at every decode step (one query row over the
+    cached memory).  The first decode step's logits are held to the plain
+    route's.  Returns the kernels' launches."""
+    from repro_torch.models import model as M
+    total = {"flash_attention": 0, "ssd_scan": 0}
+    for arch, (cfg, params) in models.items():
+        n_prompt, n_new = CROSS_PROMPT[arch], CROSS_NEW_TOKENS
+        gen = torch.Generator(device=DEVICE).manual_seed(CROSS_SEED + 3)
+        tokens = torch.randint(0, cfg.vocab, (2, n_prompt), generator=gen,
+                               device=DEVICE)
+        memory = memory_input(cfg, 2, gen)
+        max_seq = n_prompt + n_new
+        n_cross = sum(u.count("cross") * r for u, r in cfg.stages)
+        encoder = (f", {cfg.encoder_layers} encoder layers"
+                   if cfg.encoder_layers else "")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, _ = M.prefill(cfg, params, tokens, max_seq,
+                                      **memory)
+        out = [torch.argmax(logits[:, -1], -1)]
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        first = None
+        for i in range(n_new - 1):
+            logits, caches = M.decode_step(cfg, params, caches,
+                                           out[-1][:, None], n_prompt + i)
+            first = logits if first is None else first
+            out.append(torch.argmax(logits[:, -1], -1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        want = n_cross + cfg.encoder_layers + (n_new - 1) * n_cross
+        assert launches == {"flash_attention": want, "ssd_scan": 0}, (
+            arch, launches, want)
+        for k, v in launches.items():
+            total[k] += v
+        generated = torch.stack(out, 1)
+        assert generated.shape == (2, n_new)
+        assert bool(((generated >= 0) & (generated < cfg.vocab)).all())
+        plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+        _, plain_caches, _ = M.prefill(plain_cfg, params, tokens, max_seq,
+                                       **memory)
+        plain_first, _ = M.decode_step(plain_cfg, params, plain_caches,
+                                       out[0][:, None], n_prompt)
+        msg = logits_close(f"{arch} first decode step", first, plain_first)
+        say(18, f"{arch}: 2 requests, {n_prompt}-token prompts over "
+                f"{tuple(next(iter(memory.values())).shape)} memory, "
+                f"{n_new} new tokens each: prefill {t_pre:.3f} s, "
+                f"{n_new - 1} decode steps {wall - t_pre:.3f} s "
+                f"({2 * (n_new - 1) / (wall - t_pre):.2f} tokens/s), "
+                f"{2 * n_new / wall:.2f} tokens/s host wall clock incl. "
+                f"prefill; flash launches {launches['flash_attention']} "
+                f"({n_cross} cross layers at prefill and at each decode "
+                f"step{encoder}); "
+                f"first decode step vs the plain route: {msg} (limit "
+                f"{SCORE_RMS_TOL}) [{CARD}]")
+        del caches, plain_caches, logits
+        free_card()
+    return total
+
+
+def phase_training() -> None:
+    """Phase 19: mamba2-1.3b trained at full width through
+    ``FaultTolerantTrainer`` + ``CheckpointManager`` + AdamW on the plain
+    route, with one injected failure; then two ``make_train_step`` steps
+    of whisper-small at full width with frames in the batch."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.ft import (FailureInjected, FaultTolerantTrainer,
+                                TrainerConfig)
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(zoo_config(TRAIN["arch"], None),
+                              attn_impl="torch")
+    assert cfg.remat
+    ocfg = AdamWConfig(lr=TRAIN["lr"], clip_norm=1.0,
+                       warmup_steps=TRAIN["warmup_steps"],
+                       total_steps=TRAIN["steps"])
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                    global_batch=TRAIN["batch"]))
+    step = steps.make_train_step(cfg, ocfg)
+    calls, saved, checked, first, last = [], [], [], [], []
+
+    def step_fn(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+        params, opt, m = step(state["params"], state["opt"], data)
+        new = {"params": params, "opt": opt}
+        if not first:
+            first.append(data)     # its loss is the step's, at the start
+        last[:] = [new]
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        calls.append({"tokens": batch["tokens"], "loss": loss,
+                      "grad_norm": gnorm, "s": time.perf_counter() - t0})
+        if len(calls) == TRAIN["checkpoint_every"]:
+            # the state the trainer checkpoints at its first save, kept on
+            # the card (the update makes new tensors) until its restore
+            saved.append(new)
+        return new, {"loss": loss, "grad_norm": gnorm}
+
+    fired = []
+
+    def hook(s):
+        if s == TRAIN["fail_at"] and not fired:
+            fired.append(s)
+            raise FailureInjected(f"injected at step {s}")
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    trainer = FaultTolerantTrainer(
+        TrainerConfig(checkpoint_dir=TRAIN_DIR,
+                      checkpoint_every=TRAIN["checkpoint_every"]),
+        step_fn, pipe, train.make_state_fns(cfg, ocfg, seed=TRAIN["seed"],
+                                            device=DEVICE),
+        failure_hook=hook)
+    # keep the last checkpoint only: each holds 17.4 GB
+    trainer.manager = CheckpointManager(TRAIN_DIR, keep=1)
+    restore = trainer.manager.restore
+
+    def checked_restore(target, *a, **k):
+        tree, extra = restore(target, *a, **k)
+        same = [torch.equal(x, y) for x, y in zip(
+            M.L.tree_leaves(tree), M.L.tree_leaves(saved.pop()))]
+        checked.append((sum(same), len(same), extra["step"]))
+        return tree, extra
+    trainer.manager.restore = checked_restore
+    saves, save = [], trainer.manager.save
+
+    def logged_save(step_no, *a, **k):
+        saves.append(step_no)
+        return save(step_no, *a, **k)
+    trainer.manager.save = logged_save
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with host_clock(((trainer.manager, "save"), (trainer.manager, "restore"),
+                     (ckpt, "_flatten"), (np, "savez"),
+                     (trainer, "step_fn"))) as spent:
+        t0 = time.perf_counter()
+        out = trainer.run(TRAIN["steps"])
+        trainer.manager.wait()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert launch_counts() == {"flash_attention": 0, "ssd_scan": 0}
+    with torch.no_grad():
+        after = float(M.loss_fn(cfg, last[0]["params"], first[0])[0])
+    losses = [m["loss"] for m in out["metrics"]]
+    norms = [m["grad_norm"] for m in out["metrics"]]
+    secs = sorted(c["s"] for c in calls[1:])
+    per_step = secs[len(secs) // 2]
+    n_tok = TRAIN["batch"] * TRAIN["seq"]
+    say(19, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"remat, plain route (the SSD kernel has no backward); "
+            f"{TRAIN['batch']} x {TRAIN['seq']} tokens from TokenPipeline, "
+            f"{TRAIN['steps']} steps, checkpoint every "
+            f"{TRAIN['checkpoint_every']}, failure injected at step "
+            f"{TRAIN['fail_at']}: restarts {out['restarts']}, recovered "
+            f"from {out['recovered_from']}, final step {out['final_step']}; "
+            f"losses {[round(x, 4) for x in losses]}, grad norms "
+            f"{[round(x, 4) for x in norms]}; the first batch's loss "
+            f"{losses[0]:.4f} at the start, {after:.4f} after the last "
+            f"step")
+    say(19, f"{cfg.name}: {len(calls)} step calls, median {per_step:.3f} s "
+            f"per step = {n_tok / per_step:.0f} tokens/s (first call "
+            f"{calls[0]['s']:.3f} s); peak device memory {peak:.1f} GB; "
+            f"run {wall:.1f} s host wall clock: steps {spent['step_fn']:.1f} "
+            f"s, saves at steps {saves} {spent['save']:.1f} s "
+            f"(device-to-host snapshots {spent['_flatten']:.1f} s, np.savez "
+            f"{spent['savez']:.1f} s), restore {spent['restore']:.1f} s "
+            f"(its bit-for-bit check included); "
+            f"restored checkpoint: {checked[0][0]} of {checked[0][1]} leaves "
+            f"equal bit for bit to the state saved at step {checked[0][2]} "
+            f"[{CARD}]")
+    assert out["restarts"] == 1 and out["recovered_from"] == [2]
+    assert out["final_step"] == TRAIN["steps"]
+    # the re-run of step 2 drew step 2's batch: the cursor was restored
+    assert np.array_equal(calls[3]["tokens"], calls[2]["tokens"])
+    assert not np.array_equal(calls[2]["tokens"], calls[1]["tokens"])
+    assert all(math.isfinite(x) for x in losses + norms)
+    # each step's loss is over another batch of uniform random tokens,
+    # whose spread between batches (about 0.01) hides six steps' progress:
+    # the fall is read on one batch, the first
+    assert after < losses[0], (after, losses)
+    assert checked == [(checked[0][1], checked[0][1], 2)], checked
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    del trainer, restore, save, first, last
+    free_card()
+
+    # whisper-small: two steps with frames in the batch
+    wcfg = dataclasses.replace(zoo_config("whisper-small", None),
+                               attn_impl="torch")
+    params = M.init_params(wcfg, torch.Generator(device=DEVICE).manual_seed(
+        TRAIN["seed"]), DEVICE)
+    opt = adamw_init(params)
+    wstep = steps.make_train_step(wcfg, ocfg)
+    wpipe = TokenPipeline(DataConfig(vocab=wcfg.vocab,
+                                     seq_len=WHISPER_TRAIN["seq"],
+                                     global_batch=WHISPER_TRAIN["batch"]))
+    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN["seed"] + 1)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(WHISPER_TRAIN["steps"]):
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in wpipe.next_batch().items()}
+        batch.update(memory_input(wcfg, WHISPER_TRAIN["batch"], gen))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = wstep(params, opt, batch)
+        rows.append((float(m["loss"]), float(m["grad_norm"]),
+                     time.perf_counter() - t0))
+    n_tok = WHISPER_TRAIN["batch"] * WHISPER_TRAIN["seq"]
+    say(19, f"{wcfg.name}: {WHISPER_TRAIN['steps']} make_train_step steps "
+            f"at full width (12 + 12 layers), {WHISPER_TRAIN['batch']} x "
+            f"{WHISPER_TRAIN['seq']} tokens over {WHISPER_TRAIN['batch']} x "
+            f"{wcfg.encoder_seq} frames: (loss, grad norm, s) {rows}; "
+            f"{n_tok / rows[-1][2]:.0f} tokens/s at the second step; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+            f"[{CARD}]")
+    assert all(math.isfinite(a) and math.isfinite(b) for a, b, _ in rows)
+    assert all(math.isfinite(float(t.float().abs().max()))
+               for t in M.L.tree_leaves(params))
+    del params, opt
+    free_card()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2017,11 +2643,25 @@ def main() -> int:
     del cfg, params
     free_card()
     phase_analysis(ref, fault_reports)
-    for counts in (phase_zoo_scoring(), phase_zoo_anchor()):
-        for name, n in counts.items():
-            launches[name] += n
-    phase_zoo_serving()
-    say(15, f"whole run {time.perf_counter() - t0:.1f} s")
+    # each anchor's numpy weights are drawn on the host while the phase
+    # before it keeps the card busy
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        trees = pool.submit(draw_anchor_trees, ZOO_REFERENCE, zoo_cut)
+        for counts in (phase_zoo_scoring(), phase_zoo_anchor(
+                trees.result())):
+            for name, n in counts.items():
+                launches[name] += n
+        phase_zoo_serving()
+        trees = pool.submit(draw_anchor_trees, CROSS_REFERENCE, cross_cut)
+        counts, models = phase_cross_scoring()
+        for phase_counts in (counts, phase_cross_anchor(trees.result()),
+                             phase_cross_serving(models)):
+            for name, n in phase_counts.items():
+                launches[name] += n
+    del models
+    free_card()
+    phase_training()
+    say(19, f"whole run {time.perf_counter() - t0:.1f} s")
     names = (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS,
              "flash_attention", "ssd_scan")
     record = {"kernels": [{

@@ -1,9 +1,15 @@
 """Flash attention: the CUDA kernel's wrapper beside its plain version.
 
-``flash_attention`` has the reference's signature and preconditions
+``flash_attention`` has the reference's signature
 (``src/repro/kernels/flash_attention.py``: q ``(B, Hq, Sq, D)``, k/v
-``(B, Hkv, Skv, D)``, ``Sq`` and ``Skv`` divisible by ``min(128, S)``,
-queries at the kv tail).  On CUDA tensors it launches the hand-written
+``(B, Hkv, Skv, D)``, queries at the kv tail) but not its tiling
+precondition: ``Sq`` and ``Skv`` may be any length, since the kernel
+launches ``ceil(Sq / 128)`` query tiles, zero-fills its loads past the
+end of the sequence, masks every key at ``kp >= Skv`` and stores only
+rows ``< Sq``.  So whisper's 1 500 encoder frames and 448 tokens and the
+vision model's 1 600 image tokens run through it, held against
+``attention_ref``, the function the reference runs at those lengths
+(its ``"xla"`` route).  On CUDA tensors it launches the hand-written
 kernel ``csrc/flash_attention.cu`` (the port of the Pallas
 ``_flash_kernel``; the source says what bounds it and what its design
 does about that) on the current stream, or raises: a missing compiler, a
@@ -14,7 +20,9 @@ block, a cp.async K/V ring), float32 keeps the scalar-FMA kernel so that
 it agrees with ``plain`` to 2e-5.  On CPU
 tensors it runs ``plain``, the ported ``attention_ref`` (or
 ``attention_chunked`` above 1 024 queries, as the reference's model routes
-it).  ``launches`` counts the kernel's launches.
+it).  The kernel has no backward: on CUDA tensors that require grad it
+raises, and gradients take the plain route (``attn_impl="torch"``).
+``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -60,19 +68,26 @@ def plain(q, k, v, *, causal: bool = True, window: int | None = None,
     return fn(q, k, v, causal=causal, window=window, scale=scale)
 
 
-def _check(q, k, v, window, block_q: int, block_k: int) -> None:
+def no_backward(name: str, *tensors) -> None:
+    """Raise if a CUDA input requires grad: the kernel's output is filled
+    through ctypes, so autograd cannot see it and a gradient through it
+    would be silently wrong."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and its inputs "
+            "require grad; take gradients through the plain route "
+            "(attn_impl='torch', or the kernel's plain version)")
+
+
+def _check(q, k, v, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("q must be (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D),"
                          f" got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    b, hq, sq, d = q.shape
+    b, hq, _, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
                          " (batch and head width equal, Hq % Hkv == 0)")
-    skv = k.shape[2]
-    bq, bk = min(block_q, sq), min(block_k, skv)
-    if sq % bq or skv % bk:
-        raise ValueError(f"seq ({sq},{skv}) must tile by ({bq},{bk})")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -85,15 +100,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
                     block_q: int = 128, block_k: int = 128):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in
-    q.dtype.  ``block_q`` / ``block_k`` are the reference's tiling, kept as
-    its preconditions; the kernel tiles by its own sizes internally."""
+    q.dtype.  ``block_q`` / ``block_k`` are the reference's tiling
+    arguments, accepted and unused: the kernel tiles by its own sizes and
+    masks the ragged tails."""
     global launches
-    _check(q, k, v, window, block_q, block_k)
+    _check(q, k, v, window)
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
+    no_backward("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or d not in HEAD_DIMS:

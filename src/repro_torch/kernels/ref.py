@@ -159,10 +159,14 @@ def ssd_chunked_ref(x, dt, a, b, c, chunk: int = 16):
         xc, dc = xf[:, :, sl], dtf[:, :, sl]
         bc, ccx = bb[:, :, sl], cc[:, :, sl]
         # intra-chunk: M[t,u] = (c_t.b_u) exp(cum_t - cum_u) dt_u, u <= t.
-        # exp overflows above the diagonal: select, never multiply by 0.
+        # exp overflows above the diagonal: mask the exponent to -inf
+        # there, so that neither the value nor its gradient meets inf
+        # (a select after the exp keeps the value but not the gradient:
+        # 0 * inf is nan).
         m = ccx @ bc.transpose(-1, -2)
-        decay = torch.exp(cum[..., :, None] - cum[..., None, :])
-        m = torch.where(tri, m * decay * dc[..., None, :], 0.0)
+        decay = torch.exp(torch.where(
+            tri, cum[..., :, None] - cum[..., None, :], float("-inf")))
+        m = m * decay * dc[..., None, :]
         y = m @ xc
         # inter-chunk: the incoming state's contribution
         y = y + torch.exp(cum)[..., None] * (ccx @ state)

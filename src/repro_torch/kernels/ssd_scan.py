@@ -16,8 +16,10 @@ head) or, where its tiles do not fit one block (d_state 128 at chunk
 128), the fewest ``k`` that do, so that it agrees with ``plain`` to
 3e-4.  dt and a are read as
 float32, as the reference's kernel reads them.  On CPU tensors it runs
-``plain``, the ported ``ssd_chunked_ref``.  ``launches`` counts the
-kernel's launches, one per call.
+``plain``, the ported ``ssd_chunked_ref``.  The kernel has no backward:
+on CUDA tensors that require grad it raises, and gradients take the plain
+route (``attn_impl="torch"``).  ``launches`` counts the kernel's
+launches, one per call.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import no_backward
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory a block may opt in to on an H100 (227 KB), and its SMs.
@@ -198,6 +201,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, split: int | None = None):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got "
                          f"{x.device}")
+    no_backward("ssd_scan", x, dt, a, b, c)
     bsz, h, s, p = x.shape
     g, n = b.shape[1], b.shape[3]
     chunk = min(chunk, s)

@@ -86,7 +86,7 @@ class ModelConfig:
     attn_impl: str = "cuda"          # cuda | torch
     act_shard: str = "model_d"       # no effect without a mesh
     fsdp_gather_dtype: str = "f32"   # no effect without a mesh
-    remat: bool = True               # no effect: the port has no backward
+    remat: bool = True
     # loss
     loss_seq_chunk: int = 1024       # CE computed in sequence chunks
     logit_softcap: Optional[float] = None

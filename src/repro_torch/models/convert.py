@@ -7,7 +7,9 @@ list with one unit dict per repeat.  ``from_reference`` turns the
 reference's parameter tree, given as numpy arrays, into the port's
 tensors; ``to_reference`` is its inverse.  Both walk the trees as they
 find them, so every layer kind's subtree (attention with its QKV biases,
-the MLP, the experts with a shared expert, Mamba) crosses alike.
+cross-attention, the MLP, the experts with a shared expert, Mamba)
+crosses alike, and so do the encoder's own stacked stages
+(``encoder/stages``, the same leading repeats axis).
 ``config_from_reference`` /
 ``config_to_reference`` carry a ``ModelConfig`` across as its fields,
 mapping ``attn_impl`` between the reference's ``"xla"`` / ``"pallas"`` and
@@ -54,24 +56,40 @@ def _to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
+def _stage_reps(cfg: ModelConfig) -> dict:
+    """Repeats of each stage, by the key of the subtree that holds the
+    stages: the model's and the encoder's."""
+    reps = {None: [r for _, r in cfg.stages]}
+    if cfg.encoder_layers:
+        reps["encoder"] = [cfg.encoder_layers]
+    return reps
+
+
 def from_reference(cfg: ModelConfig, tree, device="cuda"):
     """The reference's parameter tree (numpy leaves, repeats stacked) ->
     the port's parameters on ``device`` (the card unless the caller asks
     for the CPU, as the tests do)."""
-    out = {k: _to_torch(v, device) for k, v in tree.items() if k != "stages"}
-    out["stages"] = []
-    for (_unit, reps), stage in zip(cfg.stages, tree["stages"]):
-        out["stages"].append([_to_torch(_unstack(stage, r), device)
-                              for r in range(reps)])
-    return out
+    reps = _stage_reps(cfg)
+
+    def walk(node, key=None):
+        out = {k: walk(v, k) if k == "encoder" else _to_torch(v, device)
+               for k, v in node.items() if k != "stages"}
+        out["stages"] = [[_to_torch(_unstack(stage, r), device)
+                          for r in range(n)]
+                         for n, stage in zip(reps[key], node["stages"])]
+        return out
+    return walk(tree)
 
 
 def to_reference(cfg: ModelConfig, params) -> dict:
     """The port's parameters -> the reference's tree of numpy arrays."""
-    out = {k: _to_numpy(v) for k, v in params.items() if k != "stages"}
-    out["stages"] = [_stack([_to_numpy(u) for u in stage])
-                     for stage in params["stages"]]
-    return out
+    def walk(node):
+        out = {k: walk(v) if k == "encoder" else _to_numpy(v)
+               for k, v in node.items() if k != "stages"}
+        out["stages"] = [_stack([_to_numpy(u) for u in stage])
+                         for stage in node["stages"]]
+        return out
+    return walk(params)
 
 
 def config_from_reference(ref_cfg) -> ModelConfig:
@@ -120,8 +138,12 @@ def init_numpy(cfg: ModelConfig, seed: int) -> dict:
             return (u + np.log(-np.expm1(-u))).astype(np.float32)
         raise ValueError(m.init)
 
-    meta = model_meta(cfg)
-    out = {k: tree_map(draw, v) for k, v in meta.items() if k != "stages"}
-    out["stages"] = [tree_map(lambda m, n=len(st): draw(m, (n,)), st[0])
-                     for st in meta["stages"]]
-    return out
+    def walk(node):
+        # the leaves outside the stages first, then each stage's repeats
+        # stacked on a leading axis; the encoder's stages alike
+        out = {k: walk(v) if k == "encoder" else tree_map(draw, v)
+               for k, v in node.items() if k != "stages"}
+        out["stages"] = [tree_map(lambda m, n=len(st): draw(m, (n,)), st[0])
+                         for st in node["stages"]]
+        return out
+    return walk(model_meta(cfg))

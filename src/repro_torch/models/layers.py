@@ -8,10 +8,13 @@ the ``meta`` device (``abstract``).  The logical axes are kept for the
 distribution slice; nothing reads them yet.
 
 The routing of ``attention_call`` and ``mamba_block`` is the reference's:
-calls with a cache (prefill, decode) take the plain routes, and only the
-cache-free forward reaches the kernels.  ``moe_block`` is plain torch,
-as the reference's is plain XLA (it has no Pallas kernel).  The
-cross-attention branch raises ``NotImplementedError``.
+self-attention with a cache (prefill, decode) and the Mamba recurrence
+take the plain routes; the cache-free forward and every cross-attention
+call (which has no ``q_offset``: its queries see the whole memory)
+reach the kernels.  ``moe_block`` is plain torch, as the reference's is
+plain XLA (it has no Pallas kernel).  Everything here is differentiable
+on the plain route; the kernels have no backward and raise on inputs
+that require grad.
 """
 from __future__ import annotations
 
@@ -25,10 +28,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
-
-UNPORTED = ("cross-attention and encoders (whisper-small, "
-            "llama-3.2-vision-11b) are not in the port yet")
-
 
 # ---------------------------------------------------------------------------
 # Parameter metadata
@@ -222,9 +221,11 @@ def _project_kv(p, src):
 
 def attention_call(cfg: ModelConfig, q, k, v, *, causal, window,
                    q_offset=None):
-    """Dispatch as the reference does: a call with a ``q_offset`` (a cache)
-    or ``attn_impl="torch"`` takes the plain route (chunked above 1 024
-    queries); only the cache-free ``"cuda"`` forward reaches the kernel."""
+    """Dispatch as the reference does: a call with a ``q_offset``
+    (self-attention against a cache) or ``attn_impl="torch"`` takes the
+    plain route (chunked above 1 024 queries); under ``"cuda"`` every
+    other call reaches the kernel: the cache-free forward and every
+    cross-attention call, prefill and decode included, at any length."""
     if q_offset is not None or cfg.attn_impl == "torch":
         if q.shape[2] > 1024:
             return kref.attention_chunked(q, k, v, causal=causal,
@@ -238,30 +239,44 @@ def attention_call(cfg: ModelConfig, q, k, v, *, causal, window,
 def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
                positions=None, cross: bool = False, memory=None, cache=None,
                pos=None):
-    """Self-attention block (pre-norm, residual).
+    """Self- or cross-attention block (pre-norm, residual).
 
-    cache: dict(k=(B,Hkv,Smax,hd), v=...), written at ``pos`` into a new
-    tensor (the caller's cache is left as it was, as the reference's
-    functional update leaves it).  Returns (x, new_cache_or_None)."""
-    if cross or memory is not None:
-        raise NotImplementedError(f"cross-attention is not ported yet: "
-                                  f"{UNPORTED}")
+    Self-attention: cache dict(k=(B,Hkv,Smax,hd), v=...), written at
+    ``pos`` into a new tensor (the caller's cache is left as it was, as
+    the reference's functional update leaves it).  Cross-attention (no
+    rope, not causal): with ``memory`` the K/V are projected from it (and
+    stored to the cache when one is given — prefill); without ``memory``
+    the cached K/V are used (decode).  Returns (x, new_cache_or_None)."""
     s = x.shape[1]
     y = apply_norm(cfg, p["ln"], x)
     q = _project_q(p, y)
     new_cache = None
     q_offset = None
-    k, v = _project_kv(p, y)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q, k = rope(q, k, positions, cfg.rope_theta)
-    if cache is not None:
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        ck[:, :, pos:pos + s] = k.to(ck.dtype)
-        cv[:, :, pos:pos + s] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv}
-        k, v = ck, cv
-        q_offset = pos
+    if cross:
+        if memory is not None:
+            k, v = _project_kv(p, memory.to(y.dtype))
+            if cache is not None:
+                new_cache = {"k": k.to(cache["k"].dtype),
+                             "v": v.to(cache["v"].dtype)}
+        else:
+            if cache is None:
+                raise ValueError("cross-attention decode needs a prefilled "
+                                 "cache or a memory")
+            k, v = cache["k"], cache["v"]
+            new_cache = cache
+        causal = False
+    else:
+        k, v = _project_kv(p, y)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q, k = rope(q, k, positions, cfg.rope_theta)
+        if cache is not None:
+            ck, cv = cache["k"].clone(), cache["v"].clone()
+            ck[:, :, pos:pos + s] = k.to(ck.dtype)
+            cv[:, :, pos:pos + s] = v.to(cv.dtype)
+            new_cache = {"k": ck, "v": cv}
+            k, v = ck, cv
+            q_offset = pos
     out = attention_call(cfg, q, k, v, causal=causal, window=window,
                          q_offset=q_offset)
     x = x + torch.einsum("bhtk,hkd->btd", out.to(x.dtype), p["wo"])

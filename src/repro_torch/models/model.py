@@ -6,14 +6,23 @@ The stack is organized in *stages* (repeated units of layer kinds, see
 parameters are a list with one unit dict per repeat.  Mixed precision as
 in the reference: float32 master parameters, cast to ``COMPUTE_DTYPE``
 (bfloat16) at use; norms, decays and the Mamba output path go back to
-float32 inside their layers.  Inference only: nothing here builds an
-autograd graph.
+float32 inside their layers.
+
+``forward`` and ``loss_fn`` are differentiable on the plain route
+(``attn_impl="torch"``; the kernels have no backward and raise on inputs
+that require grad).  With ``cfg.remat`` each unit of a stage and of the
+encoder runs under ``torch.utils.checkpoint`` when a gradient is being
+taken, as the reference's ``jax.checkpoint`` wraps its scan body, and
+the loss recomputes each vocab chunk's logits in the backward.  Scoring
+with parameters that do not require grad builds no graph; ``prefill``
+and ``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -55,10 +64,12 @@ def _block_meta(cfg: ModelConfig, kind: str) -> dict:
         return {"attn": L.attn_meta(cfg), "mlp": L.mlp_meta(cfg)}
     if kind == "moe":
         return {"attn": L.attn_meta(cfg), "moe": L.moe_meta(cfg)}
+    if kind == "cross":
+        return {"attn": L.attn_meta(cfg),
+                "xattn": L.attn_meta(cfg, cross=True), "mlp": L.mlp_meta(cfg)}
     if kind in ("mamba", "hybrid"):
         return {"mamba": L.mamba_meta(cfg)}   # shared attn lives at top level
-    raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
-                              f"{L.UNPORTED}")
+    raise ValueError(kind)
 
 
 def _has_hybrid(cfg: ModelConfig) -> bool:
@@ -66,9 +77,6 @@ def _has_hybrid(cfg: ModelConfig) -> bool:
 
 
 def model_meta(cfg: ModelConfig) -> dict:
-    if cfg.encoder_layers or cfg.n_img_tokens:
-        raise NotImplementedError(f"{cfg.name}: encoders and image memory "
-                                  f"are not ported yet: {L.UNPORTED}")
     d = cfg.d_model
     meta: dict = {
         "embed": L.ParamMeta((cfg.vocab, d), ("vocab", "embed"), scale=0.02),
@@ -83,6 +91,13 @@ def model_meta(cfg: ModelConfig) -> dict:
     if _has_hybrid(cfg):
         meta["shared_attn"] = {"attn": L.attn_meta(cfg),
                                "mlp": L.mlp_meta(cfg)}
+    if cfg.encoder_layers:
+        enc_unit = {"0": {"attn": L.attn_meta(cfg), "mlp": L.mlp_meta(cfg)}}
+        meta["encoder"] = {
+            "pos": L.ParamMeta((cfg.encoder_seq, d), (None, "embed")),
+            "stages": [L.stack_metas(enc_unit, cfg.encoder_layers)],
+            "final_norm": L.norm_meta(cfg),
+        }
     return meta
 
 
@@ -104,17 +119,23 @@ def abstract_params(cfg: ModelConfig) -> Params:
 # Forward
 # ---------------------------------------------------------------------------
 def _block_forward(cfg: ModelConfig, kind: str, p, x, *, positions,
-                   shared=None, cache=None, pos=None):
+                   memory=None, shared=None, cache=None, pos=None):
     """Returns (x, aux_loss or None, new_cache or None)."""
     aux = None
     new_cache: dict = {}
-    if kind in ("attn", "moe"):
+    if kind in ("attn", "moe", "cross"):
         c_self = cache.get("self") if cache else None
         x, nc = L.attn_block(cfg, p["attn"], x, causal=True,
                              window=cfg.sliding_window, positions=positions,
                              cache=c_self, pos=pos)
         if nc is not None:
             new_cache["self"] = nc
+        if kind == "cross":
+            c_x = cache.get("cross") if cache else None
+            x, ncx = L.attn_block(cfg, p["xattn"], x, cross=True,
+                                  memory=memory, cache=c_x, pos=pos)
+            if ncx is not None:
+                new_cache["cross"] = ncx
         if kind == "moe":
             x, aux = L.moe_block(cfg, p["moe"], x)
         else:
@@ -132,48 +153,93 @@ def _block_forward(cfg: ModelConfig, kind: str, p, x, *, positions,
             if ncs is not None:
                 new_cache["shared"] = ncs
     else:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
-                                  f"{L.UNPORTED}")
+        raise ValueError(kind)
     return x, aux, (new_cache if cache is not None else None)
 
 
+def _remat(cfg: ModelConfig, x, p_unit) -> bool:
+    """Whether a unit runs under ``torch.utils.checkpoint``: with
+    ``cfg.remat``, when a gradient is being taken through it."""
+    return cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad
+                               for t in L.tree_leaves(p_unit)))
+
+
 def _run_stage(cfg: ModelConfig, unit: tuple[str, ...], stage_params, x, *,
-               positions, shared=None, cache=None, pos=None):
+               positions, memory=None, shared=None, cache=None, pos=None):
     """Loop one stage over its repeats.  ``cache`` (if any) is a list with
-    one unit cache per repeat; so are the returned new caches.  Returns
-    (x, the stage's summed auxiliary loss, new caches)."""
+    one unit cache per repeat; so are the returned new caches.  Without a
+    cache each repeat may run under ``torch.utils.checkpoint``
+    (``_remat``), which keeps only the unit's input for the backward.
+    Returns (x, the stage's summed auxiliary loss, new caches)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if cache is not None else None
-    for r, p_unit in enumerate(stage_params):
+
+    def unit_fn(x, p_unit, c_unit):
         p_unit = cast_for_compute(p_unit)
-        c_unit = cache[r] if cache is not None else None
+        a_unit = torch.zeros((), dtype=torch.float32, device=x.device)
         new_c = {}
         for i, kind in enumerate(unit):
             ci = c_unit[str(i)] if c_unit is not None else None
             x, a, nc = _block_forward(cfg, kind, p_unit[str(i)], x,
-                                      positions=positions, shared=shared,
-                                      cache=ci, pos=pos)
+                                      positions=positions, memory=memory,
+                                      shared=shared, cache=ci, pos=pos)
             if a is not None:
-                aux = aux + a
+                a_unit = a_unit + a
             if nc is not None:
                 new_c[str(i)] = nc
-        if new_cache is not None:
-            new_cache.append(new_c)
+        return x, a_unit, new_c
+
+    for r, p_unit in enumerate(stage_params):
+        if cache is None and _remat(cfg, x, p_unit):
+            x, a, _ = checkpoint(unit_fn, x, p_unit, None,
+                                 use_reentrant=False)
+        else:
+            x, a, new_c = unit_fn(x, p_unit,
+                                  cache[r] if cache is not None else None)
+            if new_cache is not None:
+                new_cache.append(new_c)
+        aux = aux + a
     return x, aux, new_cache
 
 
-@torch.no_grad()
+def _encode(cfg: ModelConfig, params: Params, frames):
+    """Whisper-style encoder over stub frame embeddings (B, S_enc, d) in
+    the compute dtype: frames plus learned positions, then a bidirectional
+    attention stack with rope over the frame positions."""
+    enc = params["encoder"]
+    x = frames + enc["pos"][None, :frames.shape[1], :].to(frames.dtype)
+    positions = torch.arange(frames.shape[1], device=frames.device)
+
+    def unit_fn(x, p_unit):
+        p = cast_for_compute(p_unit)["0"]
+        x, _ = L.attn_block(cfg, p["attn"], x, causal=False,
+                            positions=positions)
+        return L.apply_mlp(cfg, p["mlp"], x)
+
+    for p_unit in enc["stages"][0]:
+        if _remat(cfg, x, p_unit):
+            x = checkpoint(unit_fn, x, p_unit, use_reentrant=False)
+        else:
+            x = unit_fn(x, p_unit)
+    return L.apply_norm(cfg, enc["final_norm"], x)
+
+
 def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
             frames=None, img_embeds=None, positions=None,
             caches=None, pos=None):
     """Token ids -> hidden states (pre-unembed).
 
-    caches/pos: decode mode (caches mirror the stages' structure).
-    Returns (hidden (B,S,d), aux_loss, new_caches, memory)."""
-    if memory is not None or frames is not None or img_embeds is not None:
-        raise NotImplementedError(f"cross-attention sources are not ported "
-                                  f"yet: {L.UNPORTED}")
+    memory/frames/img_embeds: cross-attention sources (encoder-decoder /
+    VLM; frames and image embeddings in the compute dtype, as the
+    reference's input specs give them).  caches/pos: decode mode (caches
+    mirror the stages' structure).  Returns (hidden (B,S,d), aux_loss,
+    new_caches, memory)."""
     _check_device(cfg, tokens.device)
+    if frames is not None:
+        memory = _encode(cfg, params, frames)
+    if img_embeds is not None:
+        memory = img_embeds
     x = params["embed"][tokens].to(COMPUTE_DTYPE)
     if positions is None:
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
@@ -185,8 +251,8 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
     for si, (unit, _reps) in enumerate(cfg.stages):
         c = caches[si] if caches is not None else None
         x, aux, nc = _run_stage(cfg, unit, params["stages"][si], x,
-                                positions=positions, shared=shared, cache=c,
-                                pos=pos)
+                                positions=positions, memory=memory,
+                                shared=shared, cache=c, pos=pos)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
@@ -194,7 +260,6 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
     return x, aux_total, new_caches, memory
 
 
-@torch.no_grad()
 def unembed(cfg: ModelConfig, params: Params, hidden):
     if cfg.tie_embeddings:
         logits = hidden @ params["embed"].to(hidden.dtype).T
@@ -209,11 +274,29 @@ def unembed(cfg: ModelConfig, params: Params, hidden):
 # ---------------------------------------------------------------------------
 # Loss (vocab-chunked cross entropy: never materializes (B,S,V) at once)
 # ---------------------------------------------------------------------------
-@torch.no_grad()
+def _chunk_stats(cfg: ModelConfig, hidden, wc, labels, off: int):
+    """One vocab chunk's (max, sum of exp at the max, gold logit) per
+    position, from its (B, S, Vc) float32 logits."""
+    logits = (hidden @ wc.to(hidden.dtype)).float()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    size = logits.shape[-1]
+    m_c = logits.max(dim=-1).values
+    s_c = torch.exp(logits - m_c[..., None]).sum(dim=-1)
+    in_range = (labels >= off) & (labels < off + size)
+    idx = torch.clamp(labels - off, 0, size - 1)
+    gold_c = torch.where(
+        in_range, torch.gather(logits, -1, idx[..., None])[..., 0], 0.0)
+    return m_c, s_c, gold_c
+
+
 def loss_fn(cfg: ModelConfig, params: Params, batch) -> tuple:
     """Cross entropy over a vocab-chunked unembedding, combined with a
-    running logsumexp (value only: the port has no backward yet).
-    Returns (loss, {"ce": ce, "aux": aux})."""
+    running logsumexp: never materializes (B, S, V).  When a gradient is
+    taken, each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` on
+    ``chunk_stats``).  Returns (loss, {"ce": ce, "aux": aux})."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     hidden, aux, _, _ = forward(
@@ -227,19 +310,16 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> tuple:
     m_run = torch.full((b, s), float("-inf"), dtype=torch.float32, device=dev)
     s_run = torch.zeros((b, s), dtype=torch.float32, device=dev)
     gold = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    grad = torch.is_grad_enabled() and (hidden.requires_grad
+                                        or w.requires_grad)
     off = 0
     while off < v:
         size = min(vc, v - off)
-        logits = (hidden @ w[:, off:off + size].to(hidden.dtype)).float()
-        if cfg.logit_softcap:
-            c = cfg.logit_softcap
-            logits = c * torch.tanh(logits / c)
-        m_c = logits.max(dim=-1).values
-        s_c = torch.exp(logits - m_c[..., None]).sum(dim=-1)
-        in_range = (labels >= off) & (labels < off + size)
-        idx = torch.clamp(labels - off, 0, size - 1)
-        gold = gold + torch.where(
-            in_range, torch.gather(logits, -1, idx[..., None])[..., 0], 0.0)
+        args = (cfg, hidden, w[:, off:off + size], labels, off)
+        m_c, s_c, gold_c = (checkpoint(_chunk_stats, *args,
+                                       use_reentrant=False)
+                            if grad else _chunk_stats(*args))
+        gold = gold + gold_c
         m_new = torch.maximum(m_run, m_c)
         s_run = s_run * torch.exp(m_run - m_new) + s_c * torch.exp(m_c - m_new)
         m_run = m_new
@@ -267,9 +347,13 @@ def stage_cache(cfg: ModelConfig, unit, reps: int, batch: int, max_seq: int,
         c_unit = {}
         for i, kind in enumerate(unit):
             c: dict = {}
-            if kind in ("attn", "moe"):
+            if kind in ("attn", "moe", "cross"):
                 c["self"] = {"k": arr((batch, hkv, max_seq, hd)),
                              "v": arr((batch, hkv, max_seq, hd))}
+                if kind == "cross":
+                    mem_len = cfg.encoder_seq or cfg.n_img_tokens
+                    c["cross"] = {"k": arr((batch, hkv, mem_len, hd)),
+                                  "v": arr((batch, hkv, mem_len, hd))}
             elif kind in ("mamba", "hybrid"):
                 s = cfg.ssm
                 gn = s.n_groups * s.d_state
@@ -284,8 +368,7 @@ def stage_cache(cfg: ModelConfig, unit, reps: int, batch: int, max_seq: int,
                     c["shared"] = {"k": arr((batch, hkv, max_seq, hd)),
                                    "v": arr((batch, hkv, max_seq, hd))}
             else:
-                raise NotImplementedError(
-                    f"layer kind {kind!r} is not ported yet: {L.UNPORTED}")
+                raise ValueError(kind)
             c_unit[str(i)] = c
         return c_unit
 
@@ -299,10 +382,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for unit, reps in cfg.stages]
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: Params, tokens, max_seq: int, *,
             frames=None, img_embeds=None):
     """Run the prompt through the model, filling fresh KV/SSM caches from
-    position 0.  Returns (last-token logits, caches, memory)."""
+    position 0 (and the cross caches from the encoder's or the image
+    memory).  Returns (last-token logits, caches, memory)."""
     b, _ = tokens.shape
     caches = init_cache(cfg, b, max_seq, device=tokens.device)
     hidden, _, caches, memory = forward(
@@ -312,10 +397,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_seq: int, *,
     return logits, caches, memory
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, caches, token, pos, *,
                 memory=None):
     """One decode step. token: (B, 1) ids; pos: the current length (an
-    int).  Returns (logits (B,1,V), new_caches)."""
+    int).  Cross layers attend over their cached memory K/V, or over
+    ``memory`` projected anew when it is given.  Returns (logits (B,1,V),
+    new_caches)."""
     positions = torch.zeros(token.shape[-1], dtype=torch.long,
                             device=token.device) + pos
     hidden, _, caches, _ = forward(

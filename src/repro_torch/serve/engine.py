@@ -108,6 +108,7 @@ class ServeEngine:
                 req.done = True
                 self.slots[i] = None
 
+    @torch.no_grad()
     def step(self) -> int:
         """One engine tick: refill, decode every active slot, retire."""
         self._refill()

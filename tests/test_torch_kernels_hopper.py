@@ -338,6 +338,10 @@ FLASH_BF16_CASES = [
     (1, 4, 1, 256, 1024, 80, True, 384),       # queries at the kv tail
     (2, 4, 2, 1, 256, 128, True, None),        # decode: one query
     (1, 3, 1, 96, 96, 32, True, None),         # a part-filled query tile
+    (2, 4, 4, 45, 93, 64, False, None),        # cross: neither tiles
+    (1, 4, 4, 1, 93, 64, False, None),         # one cross decode row
+    (1, 2, 2, 150, 150, 64, False, None),      # an encoder past one tile
+    (1, 4, 2, 130, 200, 128, True, None),      # ragged, at the kv tail
 ]
 
 
@@ -579,3 +583,49 @@ def test_zoo_smoke_forward_matches_plain_route(card, arch):
     torch.testing.assert_close(hk.float(), hp.float(),
                                atol=0.3 if cfg.moe else 0.1, rtol=2e-2)
     assert abs(float(aux_k) - float(aux_p)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_forward", [("whisper-small", 6),
+                                              ("llama-3.2-vision-11b", 3)])
+def test_zoo_cross_smoke_forward_matches_plain_route(card, arch,
+                                                     per_forward):
+    """The cross-attention models at smoke size: a cache-free forward
+    launches the kernel for every self-attention, cross-attention and
+    encoder layer, over a memory that does not tile by 128, and stays
+    within the bfloat16 limits of the plain route."""
+    from repro_torch import configs
+    from repro_torch.models import config as t_config
+    from repro_torch.models import model as t_model
+    cfg = t_config.smoke_config(configs.get(arch))
+    params = t_model.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 45), device=card, generator=gen)
+    key = "frames" if cfg.encoder_layers else "img_embeds"
+    mem = torch.randn((2, cfg.encoder_seq or cfg.n_img_tokens, cfg.d_model),
+                      device=card, generator=gen).to(torch.bfloat16)
+    t_flash.reset_launches()
+    hk, *_ = t_model.forward(cfg, params, tok, **{key: mem})
+    assert t_flash.launches == per_forward
+    hp, *_ = t_model.forward(dataclasses.replace(cfg, attn_impl="torch"),
+                             params, tok, **{key: mem})
+    torch.testing.assert_close(hk.float(), hp.float(), atol=0.1, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(card):
+    """The kernels have no backward: on CUDA tensors that require grad the
+    wrappers raise rather than hand autograd an output it cannot see
+    through; under no_grad they launch."""
+    q = torch.randn(1, 2, 45, 64, device=card, dtype=torch.bfloat16)
+    k = torch.randn(1, 2, 93, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_flash.flash_attention(q.clone().requires_grad_(), k, k,
+                                causal=False)
+    x = torch.randn(1, 2, 128, 64, device=card, requires_grad=True)
+    b = torch.randn(1, 1, 128, 16, device=card)
+    dt, a = torch.rand(1, 2, 128, device=card), -torch.rand(2, device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_ssd.ssd_scan(x, dt, a, b, b, chunk=64)
+    with torch.no_grad():
+        t_ssd.ssd_scan(x, dt, a, b, b, chunk=64)
