@@ -1,13 +1,13 @@
 """Drive the PyTorch/CUDA port (the NoC simulator, its fabric analysis,
-the model zoo with its cross-attention models, and the training path) on
-one NVIDIA card.
+the model zoo with its cross-attention models, the training path and the
+distribution layer) on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Runs from a checkout of the repository, needs one CUDA device and nvcc,
 and imports nothing of jax or of the JAX reference package.  It builds the
 port's three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-each, started together) and runs nineteen phases; any failure raises and
+each, started together) and runs twenty phases; any failure raises and
 exits non-zero.
 
 1. Device: the card's name and power limit (``nvidia-smi``), the kernels'
@@ -129,18 +129,32 @@ exits non-zero.
    new tokens each, through ``prefill(frames= / img_embeds=)`` and
    ``decode_step``; the cross layers launch the kernel at prefill and at
    every decode step; the first decode step held to the plain route.
-19. Training at full width: mamba2-1.3b (48 layers, remat, the plain
-   route) through ``FaultTolerantTrainer`` + ``CheckpointManager`` +
+19. Training at full width: mamba2-1.3b (12 of its 48 layers, remat, the
+   plain route) through ``FaultTolerantTrainer`` + ``CheckpointManager`` +
    AdamW, 4 x 2 048 tokens from ``TokenPipeline`` for 6 steps, a
    checkpoint every 2 and one injected failure at step 3: it resumes at
    step 2 with the pipeline's cursor restored, the restored state equals
    the saved one bit for bit, losses and grad norms stay finite and the
    loss falls; then two ``make_train_step`` steps of whisper-small with
    frames in the batch.  Seconds per step, tokens/s, peak memory.
+20. The distribution layer (last: a process group is global state): a
+   one-rank NCCL process group (``tcp://localhost``, any free port) and a
+   (1, 1, 1) ``("pod", "data", "model")`` mesh on the card;
+   ``make_dp_grad_fn`` on h2o-danube-1.8b at full width and depth (24
+   layers, the plain route with remat, 8 x 512 tokens) under ``flat``,
+   ``hier`` and ``hier`` + int8, held to the no-mesh value and gradient
+   (``flat`` and ``hier`` bit for bit, int8 within half a step per
+   element), each timed (seconds per gradient, tokens/s, peak memory);
+   the same model served with ``attn_impl="seq_shard"`` (2 requests, 16
+   new tokens), its first decode step held to the plain route;
+   ``reshard`` and a ``CheckpointManager`` save + ``restore(shardings=
+   ...)`` of its parameters onto the mesh's placements, every local shard
+   equal to the saved leaf bit for bit.  No kernel launches.
 
 Launch counts are zeroed just before each of phases 3, 5, 6, 9, 11,
 12's ``verify=True`` grid and ``measure_repair`` runs, each model's run
-in phases 13-18 and phase 19's training, and read just after (by mode
+in phases 13-18, phase 19's training and phase 20's gradients and
+serving, and read just after (by mode
 for noc_step).  Phases
 5 and 6 split their host wall clock into its stages (topology builds,
 device geometry, streams and operands, the kernel, the reachability
@@ -2155,10 +2169,13 @@ CROSS_NEW_TOKENS = 16
 # times that, for cuBLAS's other summation orders in bfloat16.
 GRAD_NORM_TOL = 0.01
 # Phase 19: mamba2-1.3b, the default --arch of the reference's
-# launch/train.py, at full width and depth; AdamW as launch/train.py
-# builds it but with 2 warm-up steps (its 100 would keep the learning
-# rate too small to move the loss in 6 steps); one injected failure.
-TRAIN = dict(arch="mamba2-1.3b", batch=4, seq=2048, steps=6,
+# launch/train.py, at full width with its depth cut to 12 of 48 layers
+# (each checkpoint 6.2 GB instead of 17.4 GB: the four saves and the
+# restore were two thirds of the phase, and the whole run has to leave
+# room for phase 20 inside its 600 s); AdamW as launch/train.py builds it
+# but with 2 warm-up steps (its 100 would keep the learning rate too
+# small to move the loss in 6 steps); one injected failure.
+TRAIN = dict(arch="mamba2-1.3b", depth=12, batch=4, seq=2048, steps=6,
              checkpoint_every=2, fail_at=3, lr=1e-3, warmup_steps=2,
              seed=19)
 TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
@@ -2449,7 +2466,7 @@ def phase_training() -> None:
     from repro_torch.models import model as M
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    cfg = dataclasses.replace(zoo_config(TRAIN["arch"], None),
+    cfg = dataclasses.replace(zoo_config(TRAIN["arch"], TRAIN["depth"]),
                               attn_impl="torch")
     assert cfg.remat
     ocfg = AdamWConfig(lr=TRAIN["lr"], clip_norm=1.0,
@@ -2492,7 +2509,7 @@ def phase_training() -> None:
         step_fn, pipe, train.make_state_fns(cfg, ocfg, seed=TRAIN["seed"],
                                             device=DEVICE),
         failure_hook=hook)
-    # keep the last checkpoint only: each holds 17.4 GB
+    # keep the last checkpoint only: each holds 6.2 GB
     trainer.manager = CheckpointManager(TRAIN_DIR, keep=1)
     restore = trainer.manager.restore
 
@@ -2601,6 +2618,251 @@ def phase_training() -> None:
     free_card()
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 20: the distribution layer on the card.
+# ---------------------------------------------------------------------------
+# h2o-danube-1.8b at full width and depth, the reference's own collective
+# case (its hillclimb's "collective" cell, act_shard="none"), on the plain
+# route with remat; the batch cut from the reference's 64 x 512 to 8 x 512
+# for one card's memory.  Each schedule is timed over DIST["reps"] calls
+# after its checked one.  Serving: 2 requests, a 64-token prompt, 16 new
+# tokens, attn_impl="seq_shard".
+DIST = dict(arch="h2o-danube-1.8b", batch=8, seq=512, reps=3, seed=23,
+            prompt=64, new_tokens=16)
+DIST_DIR = os.path.join(ROOT, "build", "chip_smoke_dist")
+# int8 on the pod hop against the exact gradient, per element of each
+# leaf: half an int8 step, scale / 2, to float32 rounding (the quotient
+# x / scale and the product q * scale each round once, by at most 2**-17
+# of the scale since |x| <= 127 * scale).
+INT8_STEP_SHARE = 0.5 + 2 ** -16
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for the process group's store."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dist() -> None:
+    """Phase 20: a one-rank NCCL process group and a (1, 1, 1) ``("pod",
+    "data", "model")`` mesh on the card.  ``make_dp_grad_fn`` on
+    h2o-danube-1.8b at full width under ``flat``, ``hier`` and ``hier`` +
+    int8, held to the no-mesh value and gradient (bit for bit; int8
+    within half a step); the same model served with
+    ``attn_impl="seq_shard"``; ``reshard`` and a ``CheckpointManager``
+    save + ``restore(shardings=...)`` of its parameters onto the mesh's
+    placements, bit for bit.  The process group is global state, so this
+    phase runs last and destroys it."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+
+    port = free_port()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_dev_mesh((1, 1, 1), ("pod", "data", "model"))
+        say(20, f"process group: backend {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}; mesh {mesh_mod.describe(mesh)} "
+                f"on {mesh.device_mesh.device_type}")
+        cfg = dataclasses.replace(zoo_config(DIST["arch"], None),
+                                  attn_impl="torch", act_shard="none")
+        assert cfg.remat
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(DIST["seed"]), DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(DIST["seed"] + 1)
+        seqs = torch.randint(0, cfg.vocab, (DIST["batch"], DIST["seq"] + 1),
+                             generator=gen, device=DEVICE)
+        batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+        torch.cuda.synchronize()
+        say(20, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+                f"{cfg.param_count()} parameters from init_params on the "
+                f"card in {time.perf_counter() - t0:.3f} s; batch "
+                f"{DIST['batch']} x {DIST['seq']} tokens, plain route, "
+                f"remat")
+        dist_gradients(cfg, params, batch, mesh)
+        dist_serving(cfg, params, mesh)
+        dist_checkpoint(cfg, params, mesh)
+        del params, batch
+        free_card()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gradients(cfg, params, batch, mesh) -> None:
+    """Phase 20's gradients: the no-mesh value and gradient, then each
+    schedule held to it and timed."""
+    import functools
+    from repro_torch.dist import compression, context, data_parallel
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    lf = functools.partial(M.loss_fn, cfg)
+    n_tok = batch["tokens"].numel()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (want_loss, _), want = steps._value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    leaves = M.L.tree_leaves(want)
+    scales = [float(compression.quantize(w)[1]) for w in leaves]
+    del want
+    rows = {}
+    for name, kw in (("flat", dict(schedule="flat")),
+                     ("hier", dict(schedule="hier")),
+                     ("hier+int8", dict(schedule="hier", compress=True))):
+        fn = data_parallel.make_dp_grad_fn(lf, mesh, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        with context.use_mesh(mesh):
+            loss, grads = fn(params, batch)
+            got = M.L.tree_leaves(grads)
+            if name == "hier+int8":
+                excess = max(float((g - w).abs().max()) / s
+                             for g, w, s in zip(got, leaves, scales))
+                assert excess <= INT8_STEP_SHARE, (name, excess)
+                equal = f"max |int8 - exact| {excess:.4f} of a step"
+            else:
+                same = sum(torch.equal(g, w) for g, w in zip(got, leaves))
+                assert same == len(leaves), (name, same, len(leaves))
+                equal = f"{same} of {len(leaves)} leaves equal bit for bit"
+            assert torch.equal(loss, want_loss), (name, float(loss),
+                                                  float(want_loss))
+            del grads, got
+            secs = []
+            for _ in range(DIST["reps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(params, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        s = sorted(secs)[len(secs) // 2]
+        rows[name] = s
+        say(20, f"make_dp_grad_fn {name}: loss {float(loss):.6f} equal to "
+                f"the no-mesh loss bit for bit, {equal}; {s:.3f} s per "
+                f"gradient (median of {DIST['reps']}: "
+                f"{[round(x, 3) for x in secs]}), {n_tok / s:.0f} tokens/s, "
+                f"peak device memory {peak:.1f} GB [{CARD}]")
+    assert launch_counts() == {"flash_attention": 0, "ssd_scan": 0}
+    say(20, f"no-mesh value and gradient {plain_s:.3f} s (first call); "
+            f"per-gradient seconds by schedule {rows} [{CARD}]")
+
+
+def dist_serving(cfg, params, mesh) -> None:
+    """Phase 20's serving: prefill + greedy decode with
+    ``attn_impl="seq_shard"`` under the mesh, every decode attention
+    through ``seq_sharded_attention``; the first decode step held to the
+    plain route (``attn_impl="torch"``, no mesh) under phase 13's
+    limits."""
+    from repro_torch.dist import context, decode_attn
+    from repro_torch.models import model as M
+    scfg = dataclasses.replace(cfg, attn_impl="seq_shard")
+    n_prompt, n_new = DIST["prompt"], DIST["new_tokens"]
+    gen = torch.Generator(device=DEVICE).manual_seed(DIST["seed"] + 2)
+    tokens = torch.randint(0, cfg.vocab, (2, n_prompt), generator=gen,
+                           device=DEVICE)
+    max_seq = n_prompt + n_new
+    calls, real = [], decode_attn.seq_sharded_attention
+
+    def counted(*a, **k):
+        calls.append(a[0].shape[2])
+        return real(*a, **k)
+    decode_attn.seq_sharded_attention = counted
+    reset_counts()
+    try:
+        with context.use_mesh(mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches, _ = M.prefill(scfg, params, tokens, max_seq)
+            out = [torch.argmax(logits[:, -1], -1)]
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            first = None
+            for i in range(n_new - 1):
+                logits, caches = M.decode_step(scfg, params, caches,
+                                               out[-1][:, None], n_prompt + i)
+                first = logits if first is None else first
+                out.append(torch.argmax(logits[:, -1], -1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        decode_attn.seq_sharded_attention = real
+    assert launch_counts() == {"flash_attention": 0, "ssd_scan": 0}
+    assert calls == [1] * ((n_new - 1) * cfg.n_layers), len(calls)
+    generated = torch.stack(out, 1)
+    assert generated.shape == (2, n_new)
+    assert bool(((generated >= 0) & (generated < cfg.vocab)).all())
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+    _, plain_caches, _ = M.prefill(plain_cfg, params, tokens, max_seq)
+    plain_first, _ = M.decode_step(plain_cfg, params, plain_caches,
+                                   out[0][:, None], n_prompt)
+    msg = logits_close(f"{cfg.name} seq_shard first decode step", first,
+                       plain_first)
+    say(20, f"{cfg.name} served with attn_impl='seq_shard' under the mesh: "
+            f"2 requests, {n_prompt}-token prompts, {n_new} new tokens "
+            f"each: prefill {t_pre:.3f} s, {n_new - 1} decode steps "
+            f"{wall - t_pre:.3f} s ({2 * (n_new - 1) / (wall - t_pre):.2f} "
+            f"tokens/s); {len(calls)} seq_sharded_attention calls (one per "
+            f"layer per decode step; a model axis of 1 takes its "
+            f"single-device path); first decode step vs the plain route: "
+            f"{msg} (limit {SCORE_RMS_TOL}) [{CARD}]")
+    del caches, plain_caches, logits
+    free_card()
+
+
+def dist_checkpoint(cfg, params, mesh) -> None:
+    """Phase 20's placements: ``reshard`` of the parameters onto
+    ``param_shardings`` and a save + ``restore(shardings=...)``, every
+    leaf's local shard equal to the saved leaf bit for bit."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding
+    from repro_torch.ft import trainer
+    from repro_torch.models import model as M
+    shardings = sharding.param_shardings(cfg, mesh)
+    leaves = M.L.tree_leaves(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = trainer.reshard(params, shardings)
+    torch.cuda.synchronize()
+    t_reshard = time.perf_counter() - t0
+    same = sum(torch.equal(p.to_local(), w)
+               for p, w in zip(M.L.tree_leaves(placed), leaves))
+    assert same == len(leaves), ("reshard", same, len(leaves))
+    del placed
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    mgr = CheckpointManager(DIST_DIR, keep=1)
+    t0 = time.perf_counter()
+    mgr.save(0, params)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, _ = mgr.restore(M.abstract_params(cfg), shardings=shardings)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    got = M.L.tree_leaves(restored)
+    same_restored = sum(
+        r.to_local().device == w.device and torch.equal(r.to_local(), w)
+        for r, w in zip(got, leaves))
+    assert same_restored == len(leaves), ("restore", same_restored)
+    nbytes = sum(w.numel() * w.element_size() for w in leaves)
+    placements = sorted({str(tuple(str(p) for p in s.placements))
+                         for s in M.L.tree_leaves(shardings)})
+    say(20, f"{cfg.name}: reshard onto param_shardings ({len(leaves)} "
+            f"leaves, placements {placements}) {t_reshard:.3f} s, "
+            f"{same} of {len(leaves)} local shards equal bit for bit; "
+            f"CheckpointManager save of {nbytes / 1e9:.2f} GB "
+            f"{t_save:.3f} s, restore(shardings=...) {t_restore:.3f} s, "
+            f"{same_restored} of {len(leaves)} restored local shards on the "
+            f"card equal to the saved leaves bit for bit [{CARD}]")
+    del restored, got
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2661,7 +2923,8 @@ def main() -> int:
     del models
     free_card()
     phase_training()
-    say(19, f"whole run {time.perf_counter() - t0:.1f} s")
+    phase_dist()
+    say(20, f"whole run {time.perf_counter() - t0:.1f} s")
     names = (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS,
              "flash_attention", "ssd_scan")
     record = {"kernels": [{

@@ -19,8 +19,9 @@ Layout:  <dir>/step_<N>/arrays.npz + manifest.json
   ``Tensor.view(torch.int16)``).
 
 ``restore`` puts each leaf on ``device`` (by default the device of the
-target's leaf).  Elastic resharding onto a mesh waits for the
-distribution layer (``dist/``), which the port does not have yet.
+target's leaf), or, given ``shardings``, onto a live mesh's placements
+(elastic resharding): each leaf a DTensor of which each rank holds its
+local shard.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import tree_leaves, tree_map
 
 
 def _paths(tree, prefix: tuple = ()):
@@ -174,11 +175,13 @@ class CheckpointManager:
         """Restore into the structure of ``target`` (a tree of tensors;
         only their shapes, dtypes and devices are read, so ``meta``
         tensors do).  Each leaf lands on ``device``, or on its target
-        leaf's device if None.  Returns (tree, extra)."""
+        leaf's device if None; or, with ``shardings`` (a matching tree of
+        ``dist.sharding.NamedSharding``s on the current live mesh), it is
+        distributed onto its placements (elastic resharding).  Returns
+        (tree, extra)."""
         if shardings is not None:
-            raise NotImplementedError(
-                "elastic resharding onto a mesh needs the distribution "
-                "layer (dist/), which the port does not have yet")
+            from repro_torch.dist import sharding as shd
+            shard_leaves = iter(tree_leaves(shardings))
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -207,8 +210,13 @@ class CheckpointManager:
                     raise ValueError(
                         f"shape mismatch for {key}: ckpt {arr.shape} vs "
                         f"target {tuple(leaf.shape)}")
-                leaves.append(_from_host(arr, dtypes.get(key)).to(
-                    device=leaf.device if device is None else device,
-                    dtype=leaf.dtype))
+                host = _from_host(arr, dtypes.get(key))
+                if shardings is not None:
+                    leaves.append(shd.place(host.to(leaf.dtype),
+                                            next(shard_leaves)))
+                else:
+                    leaves.append(host.to(
+                        device=leaf.device if device is None else device,
+                        dtype=leaf.dtype))
         it = iter(leaves)
         return tree_map(lambda _: next(it), target), manifest["extra"]

@@ -1,0 +1,150 @@
+"""Sequence-sharded decode attention over a ring of the ``model`` axis (the
+port of ``repro.dist.decode_attn``).
+
+Long-context decode is KV-bound: a 512k cache does not fit one device, and
+head-sharding dies when the head count does not divide the ``model`` axis
+(6-head GQA on an 8-wide axis).  So the *sequence* dimension of the cache
+shards over ``model`` and the (tiny) query visits every shard as the
+chunks move round a ring of point-to-point sends: the software analogue
+of the paper's ring transfers.  Each step moves one KV chunk to the
+neighbour while every rank consumes the chunk it holds (flash-decoding /
+ring-attention).
+
+Per ring step the rank folds its current chunk into a streaming-softmax
+accumulator (running max ``m``, normalizer ``l``, weighted value sum), so
+the result is exact (``kernels.ref.attention_ref``'s) while no rank ever
+works on more than ``S / n_shards`` keys.  The reference's ``ppermute``
+with ``perm=[(j, j + 1 mod n)]`` is one ``batch_isend_irecv`` within the
+``model`` group: after step s a rank holds the chunk of rank
+``(i - s) mod n``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.dist import collectives, context, sharding
+from repro_torch.kernels import ref as kref
+
+_NEG = -1e30  # finite mask value: keeps the streaming max NaN-free
+
+
+def _ring_shift(mesh, axis: str, n: int, tensors):
+    """Send each tensor to the next rank of ``axis`` and receive the
+    previous rank's (the reference's ``ppermute`` ring)."""
+    i = mesh.coordinate()[axis]
+    nxt, prv = mesh.peer(axis, (i + 1) % n), mesh.peer(axis, (i - 1) % n)
+    group = mesh.group(axis)
+    recv = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for t, r in zip(tensors, recv):
+        ops.append(dist.P2POp(dist.isend, t, nxt, group))
+        ops.append(dist.P2POp(dist.irecv, r, prv, group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return recv
+
+
+def _ring_attention(q, k, v, off, *, mesh, axis: str, n: int, chunk: int,
+                    skv: int, causal: bool, window: Optional[int],
+                    scale: float):
+    """One rank's part: q (b, Hq, Sq, D) whole on every rank of ``axis``;
+    k/v this rank's chunks (b, Hkv, chunk, D).  ``off`` is the absolute
+    position of q[0].
+
+    GQA stays grouped throughout: the ring moves the *raw* Hkv-head
+    chunks (never the group-repeated tensors), so each step transfers
+    exactly S/n keys' worth of bytes."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    dev = q.device
+    kk = k.float().contiguous()
+    vv = v.float().contiguous()
+    qg = q.float().reshape(b, hkv, group, sq, d)
+    q_pos = off + torch.arange(sq, device=dev)
+
+    i = mesh.coordinate()[axis]
+    m = torch.full((b, hkv, group, sq), _NEG, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, hkv, group, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32,
+                      device=dev)
+
+    for step in range(n):
+        # after `step` rotations, we hold the chunk owned by rank i - step
+        owner = (i - step) % n
+        k_pos = owner * chunk + torch.arange(chunk, device=dev)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kk) * scale
+        mask = (k_pos < skv)[None, :]                    # padding tail
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        mask = mask[None, None, None]                    # (1,1,1,Sq,chunk)
+        smax = torch.where(mask, s, _NEG).amax(dim=-1)
+        m_new = torch.maximum(m, smax)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] \
+            + torch.einsum("bhgqk,bhkd->bhgqd", p, vv)
+        m = m_new
+        if step < n - 1:
+            kk, vv = _ring_shift(mesh, axis, n, (kk, vv))
+
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def seq_sharded_attention(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None, q_offset=None,
+                          scale: Optional[float] = None,
+                          seq_axis: str = "model"):
+    """Decode attention with the KV sequence sharded over ``seq_axis``.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0, whole on
+    every rank.  Matches ``kernels.ref.attention_ref`` semantics (causal /
+    sliding window / ``q_offset`` into a fixed cache buffer).  Each rank
+    takes its batch rows (``sharding.batch_entry``) and its sequence chunk
+    by its mesh coordinate, the chunks go round the ring, and the batch
+    rows are gathered back: every rank returns the whole (B, Hq, Sq, D).
+
+    Without an ambient mesh, or when the mesh lacks ``seq_axis`` or it has
+    size 1, this falls back to the single-device reference path, so
+    callers never need to special-case the unsharded world.
+    """
+    mesh = context.current_mesh()
+    if mesh is None or seq_axis not in mesh.axis_names \
+            or int(mesh.shape[seq_axis]) <= 1:
+        return kref.attention_ref(q, k, v, causal=causal, window=window,
+                                  scale=scale, q_offset=q_offset)
+
+    n = int(mesh.shape[seq_axis])
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    assert hq % hkv == 0, (hq, hkv)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    off = skv - sq if q_offset is None else q_offset
+
+    pad = (-skv) % n
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    chunk = (skv + pad) // n
+
+    entry = sharding.batch_entry(mesh, b)
+    i = mesh.coordinate()[seq_axis]
+    qb = sharding.local_rows(mesh, q, entry)
+    kb = sharding.local_rows(mesh, k, entry).narrow(2, i * chunk, chunk)
+    vb = sharding.local_rows(mesh, v, entry).narrow(2, i * chunk, chunk)
+    out = _ring_attention(qb, kb, vb, off, mesh=mesh, axis=seq_axis, n=n,
+                          chunk=chunk, skv=skv, causal=causal, window=window,
+                          scale=scale)
+    axes = sharding.entry_axes(entry)
+    return collectives.all_gather(out, mesh.group(axes)) if axes else out

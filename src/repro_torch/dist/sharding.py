@@ -1,0 +1,263 @@
+"""Logical-axis -> mesh-axis sharding rules (the port of
+``repro.dist.sharding``; t5x-style, shape-checked).
+
+Every parameter carries logical axis names in its ``ParamMeta``
+(``models.layers``); this module turns them into specs (``P``) against a
+mesh, and specs into DTensor placements.  The production meshes are
+``("data", "model")`` and ``("pod", "data", "model")``:
+
+* FSDP: the ``embed`` dimension of every weight shards over the batch axes
+  (``pod`` x ``data``), ZeRO-3, since optimizer states mirror params.
+* Tensor parallel: ``heads`` / ``kv_heads`` / ``ff`` / ``inner`` /
+  ``experts`` / ``vocab`` shard over ``model`` (Megatron split; experts
+  over ``model`` = expert parallelism).
+* MoE ``expert_ff`` stays replicated.
+
+**Divisibility fallback** (``fit_spec``): a mesh axis is only applied to a
+tensor dimension when the dimension size divides evenly; otherwise the
+axis is dropped (longest valid prefix for grouped axes) and the dimension
+falls back toward replication.  A mesh axis is also never used twice in
+one spec.  This is what keeps one rule set valid across the whole model
+zoo: 6-head decode tensors on an 8-wide ``model`` axis simply replicate
+(and the sequence dimension shards instead; see ``decode_attn``).
+
+**Layout.**  The reference stacks a stage's repeats on a leading
+``layers`` dimension (rule ``()``, so its entry is always None); the port
+keeps the repeats as a list, so its spec for such a leaf is the
+reference's without that leading entry.  The same holds for the caches'
+leading ``reps`` dimension in ``cache_specs``.
+
+**Placements.**  ``NamedSharding.placements`` gives one ``Shard(d)`` or
+``Replicate()`` per mesh axis, for
+``torch.distributed.tensor.distribute_tensor``.  A grouped entry
+``("pod", "data")`` becomes ``Shard(d)`` on both axes, applied in mesh
+order (the first outermost), which is JAX's major-to-minor split.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.dist import context
+
+# logical axis -> candidate mesh axes (applied in order, longest valid
+# prefix wins; see fit_spec)
+DEFAULT_RULES: dict[Optional[str], tuple[str, ...]] = {
+    "embed": ("pod", "data"),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "ff": ("model",),
+    "inner": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "expert_ff": (),
+    "layers": (),
+    None: (),
+}
+
+
+class P(tuple):
+    """A partition spec: one entry per dimension, each None (replicated),
+    a mesh axis name, or a tuple of names (split over all of them, the
+    first outermost).  ``P(None, "model") == (None, "model")``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+def _entry(axes: tuple[str, ...]):
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (None -> ``()``)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def fit_spec(spec, shape: tuple[int, ...], mesh) -> P:
+    """Clamp ``spec`` to ``shape`` on ``mesh`` (divisibility fallback).
+
+    Returns a full-rank spec (one entry per dimension).  Per dimension the
+    requested mesh axes are applied left-to-right while the running
+    product still divides the dimension size; axes that are absent from
+    the mesh, already used by an earlier dimension, or break divisibility
+    are dropped (dropping mid-group stops the group: a partial shard of
+    a *later* axis alone would permute data, not restrict it).
+    """
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used: set[str] = set()
+    out = []
+    for dim, entry in zip(shape, entries):
+        kept: list[str] = []
+        prod = 1
+        for a in entry_axes(entry):
+            if a not in mesh.axis_names or a in used:
+                continue
+            n = int(mesh.shape[a])
+            if dim % (prod * n) != 0:
+                break
+            kept.append(a)
+            prod *= n
+        used.update(kept)
+        out.append(_entry(tuple(kept)))
+    return P(*out)
+
+
+def spec_for_axes(axes: tuple[Optional[str], ...], mesh, *,
+                  shape: Optional[tuple[int, ...]] = None,
+                  rules: Optional[dict] = None) -> P:
+    """Spec for one tensor from its logical axis names.
+
+    With ``shape`` the spec is additionally clamped by ``fit_spec``;
+    without it only mesh-membership and axis-reuse are enforced.
+    """
+    table = dict(DEFAULT_RULES)
+    if rules:
+        table.update(rules)
+    raw = [tuple(table.get(name, ())) for name in axes]
+    if shape is not None:
+        return fit_spec(P(*[_entry(r) for r in raw]), tuple(shape), mesh)
+    used: set[str] = set()
+    out = []
+    for r in raw:
+        kept = tuple(a for a in r if a in mesh.axis_names and a not in used)
+        used.update(kept)
+        out.append(_entry(kept))
+    return P(*out)
+
+
+def batch_entry(mesh, b: int):
+    """Spec entry for a batch of ``b``: the longest prefix of the batch
+    axes whose product divides ``b``: ``("pod", "data")`` / ``"data"`` /
+    ``None``."""
+    kept: list[str] = []
+    prod = 1
+    for a in context.data_axes(mesh):
+        n = int(mesh.shape[a])
+        if b % (prod * n) != 0:
+            break
+        kept.append(a)
+        prod *= n
+    return _entry(tuple(kept))
+
+
+def batch_spec(mesh) -> P:
+    """Spec for the leading (global batch) dimension: all batch axes
+    grouped, e.g. ``P(("pod", "data"))``, or ``P()`` on a mesh with no
+    batch axes (single-device fallback)."""
+    baxes = context.data_axes(mesh)
+    return P(_entry(baxes)) if baxes else P()
+
+
+def local_rows(mesh, t, entry, dim: int = 0):
+    """This rank's block of ``t`` along ``dim`` when that dimension is split
+    over the axes of ``entry`` (all of ``t`` for None): the block at the
+    rank's row-major position over those axes."""
+    axes = entry_axes(entry)
+    if not axes:
+        return t
+    n = 1
+    for a in axes:
+        n *= int(mesh.shape[a])
+    per = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(axes) * per, per)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: the port's ``jax.sharding.NamedSharding``."""
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        """One DTensor placement per mesh axis (see the module
+        docstring); raises on a grouped entry whose axes are out of mesh
+        order, which has no such placement (the default rules make
+        none)."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = [Replicate() for _ in self.mesh.axis_names]
+        for d, entry in enumerate(self.spec):
+            axes = entry_axes(entry)
+            pos = [self.mesh.axis_names.index(a) for a in axes]
+            assert pos == sorted(pos), \
+                f"entry {entry!r} is out of mesh order {self.mesh.axis_names}"
+            for i in pos:
+                out[i] = Shard(d)
+        return tuple(out)
+
+
+def place(x, sharding: NamedSharding):
+    """``x`` (a tensor, an array, or a DTensor on another mesh) as a DTensor
+    on ``sharding``'s live mesh and placements, each rank holding its
+    local shard (``distribute_tensor``)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    elif not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return distribute_tensor(x, sharding.mesh.device_mesh,
+                             sharding.placements)
+
+
+def param_specs(cfg, mesh, rules: Optional[dict] = None) -> Any:
+    """Spec tree mirroring ``models.model_meta(cfg)`` (a stage's repeats a
+    list, each repeat's specs without the reference's leading entry)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    return L.tree_map(lambda m: spec_for_axes(
+        m.axes, mesh, shape=m.shape, rules=rules), M.model_meta(cfg))
+
+
+def param_shardings(cfg, mesh, rules: Optional[dict] = None) -> Any:
+    """``NamedSharding`` tree mirroring the parameter tree; each leaf's
+    ``placements`` feed ``distribute_tensor``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    return L.tree_map(lambda m: NamedSharding(mesh, spec_for_axes(
+        m.axes, mesh, shape=m.shape, rules=rules)), M.model_meta(cfg))
+
+
+def cache_specs(cfg, mesh, batch: int, seq_len: int, *,
+                seq_shard: bool = False) -> Any:
+    """Spec tree mirroring ``models.init_cache`` (one unit cache per
+    repeat, each spec without the reference's leading ``reps`` entry).
+
+    KV caches (B, Hkv, S, hd) shard batch over the batch axes and, by
+    default, heads over ``model``.  With ``seq_shard=True`` the cache
+    *sequence* shards over ``model`` instead (the long-context decode
+    layout consumed by ``decode_attn.seq_sharded_attention``).  Mamba
+    states shard their channel/head dimension over ``model``.  Every spec
+    passes through ``fit_spec``, so indivisible dims fall back to
+    replication.
+    """
+    from repro_torch.models import model as M
+    b = _entry(context.data_axes(mesh))
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        if name in ("k", "v"):
+            spec = P(b, None, "model", None) if seq_shard \
+                else P(b, "model", None, None)
+        elif name == "ssm":
+            spec = P(b, "model", None, None)
+        elif name in ("conv_x", "conv_b", "conv_c"):
+            spec = P(b, None, "model")
+        else:
+            spec = P(b)
+        return fit_spec(spec, tuple(tree.shape), mesh)
+
+    return walk(M.init_cache(cfg, batch, seq_len, device="meta"))

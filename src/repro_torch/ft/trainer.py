@@ -1,7 +1,8 @@
 """Fault tolerance: restartable training, straggler detection, elastic
 rescale — the system-level reading of the paper's morphing (§5.1).  The
 port of ``repro.ft.trainer``: host logic, copied as it is, on the port's
-``CheckpointManager``; ``reshard`` waits for the distribution layer.
+``CheckpointManager``; ``reshard`` places a tree on a mesh's shardings as
+DTensors.
 
     Bypass     -> a failed worker's step is retried / its shard re-routed
     Switch-off -> the fleet shrinks: rebuild the mesh, reshard from the
@@ -140,8 +141,11 @@ class FaultTolerantTrainer:
 
 
 def reshard(tree, shardings):
-    """Elastic rescale onto a new mesh's shardings: needs the distribution
-    layer (``dist/``), which the port does not have yet."""
-    raise NotImplementedError(
-        "reshard moves a tree onto a mesh's shardings and needs the "
-        "distribution layer (dist/), which the port does not have yet")
+    """Elastic rescale: move a tree (host tensors, arrays, or DTensors laid
+    out for another mesh) onto a new mesh's shardings, a matching tree of
+    ``dist.sharding.NamedSharding``s.  Each leaf goes through
+    ``distribute_tensor`` onto its placements (``sharding.place``): a
+    DTensor of which each rank holds its local shard."""
+    from repro_torch.dist import sharding
+    from repro_torch.models.layers import tree_map
+    return tree_map(sharding.place, tree, shardings)

@@ -1,9 +1,10 @@
-"""Step functions of the training path (the port of
-``repro.launch.steps``: ``make_train_step`` and ``accum_for``).
+"""Step functions (the port of ``repro.launch.steps``): the training
+step (``make_train_step``, ``accum_for``) and the serving steps
+(``make_prefill_step``, ``make_decode_step``).
 
-The rest of the reference's module (``make_case`` with its shardings,
-the prefill and decode steps it assembles for the dry run) waits for the
-distribution layer (``dist/``) and the launch slice.
+The rest of the reference's module (``make_case``, which assembles a
+step with its shardings and abstract arguments for the dry run) waits
+for the port's dry-run slice.
 
 Training takes the plain routes: neither kernel has a backward (nor has
 the reference's Pallas kernels, and its training step runs with
@@ -13,8 +14,11 @@ switch on the caller's behalf.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.dist.data_parallel import value_and_grad
 from repro_torch.models import config as mcfg
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -24,11 +28,9 @@ from repro_torch.optim import AdamWConfig, adamw_update
 def _value_and_grad(cfg: mcfg.ModelConfig, params, batch):
     """((loss, metrics), grads) of ``loss_fn`` at ``params``, the grads in
     each parameter's dtype, the values detached."""
-    live = L.tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, metrics = M.loss_fn(cfg, live, batch)
-    it = iter(torch.autograd.grad(loss, L.tree_leaves(live)))
-    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
-            L.tree_map(lambda _: next(it), params))
+    (loss, metrics), grads = value_and_grad(
+        functools.partial(M.loss_fn, cfg))(params, batch)
+    return (loss, {k: v.detach() for k, v in metrics.items()}), grads
 
 
 def make_train_step(cfg: mcfg.ModelConfig, ocfg: AdamWConfig,
@@ -87,3 +89,18 @@ def accum_for(cfg: mcfg.ModelConfig, cell) -> int:
     if n > 8e9:
         return 2
     return 1
+
+
+def make_prefill_step(cfg: mcfg.ModelConfig, max_seq: int):
+    def prefill_step(params, batch):
+        logits, caches, _mem = M.prefill(
+            cfg, params, batch["tokens"], max_seq=max_seq,
+            frames=batch.get("frames"), img_embeds=batch.get("img_embeds"))
+        return logits, caches
+    return prefill_step
+
+
+def make_decode_step(cfg: mcfg.ModelConfig):
+    def serve_step(params, caches, token, pos):
+        return M.decode_step(cfg, params, caches, token, pos)
+    return serve_step

@@ -8,11 +8,14 @@ kinds, e.g. ``((("attn",), 28),)`` for a plain decoder or
 repeats.
 
 ``attn_impl`` picks the kernels' route: ``"cuda"`` (the default; the
-hand-written kernels, the reference's ``"pallas"``) or ``"torch"`` (the
-plain route, the reference's ``"xla"``).  ``"seq_shard"``, ``act_shard``
-and ``fsdp_gather_dtype`` belong to the distribution layer (``dist/``),
-which the port does not have yet: ``"seq_shard"`` raises; the other two
-are kept as fields and do nothing, as in the reference without a mesh.
+hand-written kernels, the reference's ``"pallas"``), ``"torch"`` (the
+plain route, the reference's ``"xla"``) or ``"seq_shard"`` (the plain
+route, with every one-row query sent to the distribution layer's
+``dist.decode_attn.seq_sharded_attention``, which shards the cache's
+sequence over the ambient mesh's ``model`` axis).  ``act_shard`` and
+``fsdp_gather_dtype`` steer the reference's GSPMD layout hints, which
+have no eager counterpart (``layers.constrain_btd``): the port keeps them
+as fields and they do nothing.
 
 Layer kinds:
     attn    — self-attention (GQA / optional sliding window) + MLP
@@ -31,7 +34,7 @@ LayerUnit = tuple[str, ...]
 Stage = tuple[LayerUnit, int]
 
 KINDS = ("attn", "moe", "cross", "mamba", "hybrid")
-ATTN_IMPLS = ("torch", "cuda")
+ATTN_IMPLS = ("torch", "cuda", "seq_shard")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +86,9 @@ class ModelConfig:
     n_img_tokens: int = 0
     tie_embeddings: bool = False
     max_seq: int = 8192
-    attn_impl: str = "cuda"          # cuda | torch
-    act_shard: str = "model_d"       # no effect without a mesh
-    fsdp_gather_dtype: str = "f32"   # no effect without a mesh
+    attn_impl: str = "cuda"          # cuda | torch | seq_shard (decode)
+    act_shard: str = "model_d"       # a layout hint: no eager effect
+    fsdp_gather_dtype: str = "f32"   # a layout hint: no eager effect
     remat: bool = True
     # loss
     loss_seq_chunk: int = 1024       # CE computed in sequence chunks
@@ -100,11 +103,6 @@ class ModelConfig:
         for unit, _ in self.stages:
             for k in unit:
                 assert k in KINDS, k
-        if self.attn_impl == "seq_shard":
-            raise NotImplementedError(
-                "attn_impl='seq_shard' (sequence-sharded decode attention) "
-                "needs the distribution layer (dist/decode_attn.py), which "
-                "the port does not have yet")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")

@@ -13,8 +13,9 @@ crosses alike, and so do the encoder's own stacked stages
 ``config_from_reference`` /
 ``config_to_reference`` carry a ``ModelConfig`` across as its fields,
 mapping ``attn_impl`` between the reference's ``"xla"`` / ``"pallas"`` and
-the port's ``"torch"`` / ``"cuda"``.  No module here imports the
-reference: a test hands the numpy arrays and the fields across.
+the port's ``"torch"`` / ``"cuda"`` (``"seq_shard"`` keeps its name).  No
+module here imports the reference: a test hands the numpy arrays and
+the fields across.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.models.config import ModelConfig, MoEConfig, SSMConfig
 from repro_torch.models.layers import tree_map
 from repro_torch.models.model import model_meta
 
-_IMPL_FROM_REFERENCE = {"xla": "torch", "pallas": "cuda"}
+_IMPL_FROM_REFERENCE = {"xla": "torch", "pallas": "cuda",
+                        "seq_shard": "seq_shard"}
 _IMPL_TO_REFERENCE = {v: k for k, v in _IMPL_FROM_REFERENCE.items()}
 
 

@@ -4,8 +4,8 @@ of ``repro.models.layers``).
 Parameters are plain nested dicts (and, for a stage's repeats, lists) of
 tensors, described by ``ParamMeta`` (shape, logical axes, init) so that the
 same table yields real parameters (``materialize``) and shape-only ones on
-the ``meta`` device (``abstract``).  The logical axes are kept for the
-distribution slice; nothing reads them yet.
+the ``meta`` device (``abstract``).  ``dist.sharding`` reads the logical
+axes to shard the parameters over a mesh.
 
 The routing of ``attention_call`` and ``mamba_block`` is the reference's:
 self-attention with a cache (prefill, decode) and the Mamba recurrence
@@ -108,13 +108,18 @@ def norm_meta(cfg: ModelConfig) -> dict:
 
 
 def constrain_btd(cfg, x):
-    """Identity: the reference's activation sharding constraint is a no-op
-    without a mesh, and the port has no mesh yet."""
+    """Identity, under a live mesh too.  The reference's version is a GSPMD
+    layout hint (``with_sharding_constraint`` per ``cfg.act_shard``) for
+    the compiler that partitions its global program; it changes no value.
+    The port has no such compiler: its model runs per rank on local
+    tensors, as the reference's ``shard_map`` bodies run under
+    ``suspend_mesh``, where the hint is a no-op as well."""
     return x
 
 
 def constrain_inner(x, dim: int):
-    """Identity, as ``constrain_btd``."""
+    """Identity, as ``constrain_btd`` (the reference's hint to shard an
+    inner activation's ``dim`` over ``model``)."""
     return x
 
 
@@ -221,12 +226,19 @@ def _project_kv(p, src):
 
 def attention_call(cfg: ModelConfig, q, k, v, *, causal, window,
                    q_offset=None):
-    """Dispatch as the reference does: a call with a ``q_offset``
-    (self-attention against a cache) or ``attn_impl="torch"`` takes the
-    plain route (chunked above 1 024 queries); under ``"cuda"`` every
-    other call reaches the kernel: the cache-free forward and every
-    cross-attention call, prefill and decode included, at any length."""
-    if q_offset is not None or cfg.attn_impl == "torch":
+    """Dispatch as the reference does: under ``attn_impl="seq_shard"`` a
+    one-row query (decode) goes to ``dist.decode_attn``'s
+    sequence-sharded attention (the plain route without a mesh); a call
+    with a ``q_offset`` (self-attention against a cache), ``"torch"`` or
+    ``"seq_shard"`` takes the plain route (chunked above 1 024 queries);
+    under ``"cuda"`` every other call reaches the kernel: the cache-free
+    forward and every cross-attention call, prefill and decode included,
+    at any length."""
+    if cfg.attn_impl == "seq_shard" and q.shape[2] == 1:
+        from repro_torch.dist import decode_attn
+        return decode_attn.seq_sharded_attention(
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if q_offset is not None or cfg.attn_impl in ("torch", "seq_shard"):
         if q.shape[2] > 1024:
             return kref.attention_chunked(q, k, v, causal=causal,
                                           window=window, q_offset=q_offset)

@@ -6,11 +6,14 @@ reference.
 * A checkpoint written by either package, a bfloat16 leaf included,
   restores in the other: same layout, same key strings, a stage's
   repeats stacked on the leading axis in the file.
+* ``restore(shardings=...)`` and ``reshard`` place every leaf on a
+  one-rank CPU mesh as a DTensor whose local shard is the leaf.
 * ``FaultTolerantTrainer`` with an injected failure resumes from its last
   checkpoint with the pipeline's cursor restored, and ends bit for bit
   where an uninterrupted run ends (CPU, smoke size, plain route).
 No tolerance anywhere: every comparison is exact.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -21,6 +24,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import configs as r_configs
 from repro.checkpoint import manager as r_ckpt
@@ -29,7 +33,9 @@ from repro.ft import trainer as r_trainer
 from repro.models import config as r_config
 from repro_torch.checkpoint import manager as t_ckpt
 from repro_torch.data import pipeline as t_pipe
+from repro_torch.dist import sharding as t_sharding
 from repro_torch.ft import trainer as t_trainer
+from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import steps as t_steps
 from repro_torch.launch import train as t_train
 from repro_torch.models import convert
@@ -42,6 +48,18 @@ DATA = [dict(vocab=256, seq_len=64, global_batch=4),
              mean_doc_len=64),
         dict(vocab=1000, seq_len=32, global_batch=6, num_hosts=2,
              host_id=1)]
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A live one-rank ``("data",)`` mesh on a gloo process group (a file
+    store under ``tmp_path``), torn down after."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield t_mesh.make_dev_mesh((1,), ("data",), device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def equal_batches(a, b):
@@ -182,8 +200,19 @@ def test_checkpoint_written_by_the_reference_restores_in_the_port(tmp_path):
         bad = dict(target, opt=dict(target["opt"],
                                     step=torch.empty(2, device="meta")))
         mgr.restore(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution layer"):
-        mgr.restore(target, shardings={})
+    # elastic resharding onto a one-rank CPU mesh (the 8-rank case is
+    # tests/test_torch_dist_ranks.py): every leaf a DTensor whose local
+    # shard is the whole leaf, bit for bit, the bfloat16 leaf included
+    with one_rank_mesh(tmp_path) as mesh:
+        shardings = t_layers.tree_map(
+            lambda t: t_sharding.NamedSharding(mesh, t_sharding.fit_spec(
+                t_sharding.P("data"), tuple(t.shape), mesh)), target)
+        placed, extra = mgr.restore(target, shardings=shardings)
+        assert extra == {"step": 4}
+        for a, b in zip(t_layers.tree_leaves(placed),
+                        t_layers.tree_leaves(t_state)):
+            local = a.to_local()
+            assert local.dtype == b.dtype and torch.equal(local, b)
 
 
 def test_checkpoint_layout_atomic_latest_keep_and_async(tmp_path):
@@ -258,7 +287,7 @@ def test_trainer_restart_is_bit_exact(tmp_path):
     assert all(np.isfinite(m["loss"]) for m in clean["metrics"])
 
 
-def test_straggler_detector_and_reshard_match_the_reference():
+def test_straggler_detector_and_reshard_match_the_reference(tmp_path):
     t, r = t_trainer.StragglerDetector(4), r_trainer.StragglerDetector(4)
     rng = np.random.default_rng(0)
     for _ in range(20):
@@ -267,5 +296,21 @@ def test_straggler_detector_and_reshard_match_the_reference():
         t.observe(host, dt)
         r.observe(host, dt)
     assert t.stragglers() == r.stragglers() == [2]
-    with pytest.raises(NotImplementedError, match="distribution layer"):
-        t_trainer.reshard({}, {})
+    # reshard onto a one-rank CPU mesh equals the reference's reshard onto
+    # its one device (the 8-rank case is tests/test_torch_dist_ranks.py)
+    tree = {"w": np.arange(12, dtype=np.float32).reshape(4, 3),
+            "b": [np.ones(3, np.float32)]}
+    with one_rank_mesh(tmp_path) as mesh:
+        shd = {"w": t_sharding.NamedSharding(mesh, t_sharding.P("data")),
+               "b": [t_sharding.NamedSharding(mesh, t_sharding.P())]}
+        got = t_trainer.reshard(tree, shd)
+    rmesh = jax.make_mesh((1,), ("data",))
+    want = r_trainer.reshard(tree, {
+        "w": jax.sharding.NamedSharding(rmesh, jax.sharding.PartitionSpec(
+            "data")),
+        "b": [jax.sharding.NamedSharding(rmesh,
+                                         jax.sharding.PartitionSpec())]})
+    np.testing.assert_array_equal(got["w"].to_local().numpy(), want["w"])
+    np.testing.assert_array_equal(got["b"][0].to_local().numpy(),
+                                  want["b"][0])
+    assert t_trainer.reshard({}, {}) == {}

@@ -88,16 +88,21 @@ def test_config_carries_across(setup):
 
 def test_other_archs_and_unported_paths_raise():
     """Every architecture of the reference's registry resolves (the
-    cross-attention ones since their slice); an unknown id and the
-    distribution layer's attention still raise."""
+    cross-attention ones since their slice); an unknown id and an
+    attention route the port does not have still raise, and the
+    distribution layer's ``"seq_shard"`` resolves and crosses to the
+    reference by its own name."""
     assert list(t_configs.ARCHS) == list(r_configs.ARCHS)
     for name in ("whisper-small", "llama-3.2-vision-11b"):
         assert t_configs.get(name).name == name
     with pytest.raises(KeyError):
         t_configs.get("gpt-5")
     cfg = t_configs.get("zamba2-1.2b")
-    with pytest.raises(NotImplementedError, match="distribution layer"):
-        dataclasses.replace(cfg, attn_impl="seq_shard")
+    seq = dataclasses.replace(cfg, attn_impl="seq_shard")
+    assert convert.config_to_reference(seq)["attn_impl"] == "seq_shard"
+    assert convert.config_from_reference(
+        dataclasses.replace(r_configs.get("zamba2-1.2b"),
+                            attn_impl="seq_shard")) == seq
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(cfg, attn_impl="pallas")
     cross = dataclasses.replace(cfg, stages=((("cross",), 38),), ssm=None)
