@@ -137,11 +137,12 @@ exits non-zero.
    the saved one bit for bit, losses and grad norms stay finite and the
    loss falls; then two ``make_train_step`` steps of whisper-small with
    frames in the batch.  Seconds per step, tokens/s, peak memory.
-20. The distribution layer (last: a process group is global state): a
-   one-rank NCCL process group (``tcp://localhost``, any free port) and a
-   (1, 1, 1) ``("pod", "data", "model")`` mesh on the card;
-   ``make_dp_grad_fn`` on h2o-danube-1.8b at full width and depth (24
-   layers, the plain route with remat, 8 x 512 tokens) under ``flat``,
+20. The distribution layer (a process group is global state: the phase
+   destroys it at its end): a one-rank NCCL process group
+   (``tcp://localhost``, any free port) and a (1, 1, 1) ``("pod", "data",
+   "model")`` mesh on the card; ``make_dp_grad_fn`` on h2o-danube-1.8b at
+   full width and depth (the plain route with remat, 8 x 512 tokens)
+   under ``flat``,
    ``hier`` and ``hier`` + int8, held to the no-mesh value and gradient
    (``flat`` and ``hier`` bit for bit, int8 within half a step per
    element), each timed (seconds per gradient, tokens/s, peak memory);
@@ -150,6 +151,34 @@ exits non-zero.
    ``reshard`` and a ``CheckpointManager`` save + ``restore(shardings=
    ...)`` of its parameters onto the mesh's placements, every local shard
    equal to the saved leaf bit for bit.  No kernel launches.
+21. The dry run on the card's terms (``repro_torch.launch``; each cell
+   brings up and ends its own ``"fake"`` process group, so it runs after
+   phase 20).  (a) Fake dry runs at full size on fake CUDA tensors
+   (``dryrun.run_cell``, no memory allocated): qwen2-7b ``decode_32k``
+   and h2o-danube-1.8b ``long_500k`` on the single-pod (16, 16) mesh,
+   mamba2-1.3b ``prefill_32k`` and whisper-small ``train_4k`` on the
+   multi-pod (2, 16, 16) mesh (mamba2 on the kernel route; a prefill
+   takes the plain routes, as the reference's does, so the ``ssd_scan``
+   custom op is not reached there): memory, FLOPs, collectives by kind,
+   the data-sheet roofline terms (predictions) and the fake run's
+   seconds.  (b) One-card
+   real runs: h2o-danube-1.8b ``prefill_32k`` at batch 1 of 32, qwen2-7b
+   ``decode_32k`` at batch 8 of 128, h2o-danube-1.8b ``long_500k`` at
+   its own batch of 1 and whisper-small ``decode_32k`` at batch 8 of 128,
+   every layer at full width, each once as a fake run
+   on a one-rank fake mesh and once for real on the card (the same
+   case's step on real tensors of the same local shapes,
+   ``attn_override="cuda"``): the fake FLOPs equal the real run's census
+   exactly, the argument bytes equal the real arguments' exactly, the
+   predicted temp lies within ``TEMP_BAND`` of
+   ``torch.cuda.max_memory_allocated()`` above the arguments, and the
+   step's measured time stands beside its roofline bound; flash launches
+   per step counted and printed.  Self-attention against a cache takes
+   the plain route, as in the reference, so the first three cells launch
+   no kernel; whisper-small's decode step reaches ``flash_attention``
+   through its cross-attention (one launch a layer, asserted), so the
+   custom op's fake implementation and FLOP formula meet the real launch
+   there.
 
 Launch counts are zeroed just before each of phases 3, 5, 6, 9, 11,
 12's ``verify=True`` grid and ``measure_repair`` runs, each model's run
@@ -2172,9 +2201,9 @@ GRAD_NORM_TOL = 0.01
 # launch/train.py, at full width with its depth cut to 12 of 48 layers
 # (each checkpoint 6.2 GB instead of 17.4 GB: the four saves and the
 # restore were two thirds of the phase, and the whole run has to leave
-# room for phase 20 inside its 600 s); AdamW as launch/train.py builds it
-# but with 2 warm-up steps (its 100 would keep the learning rate too
-# small to move the loss in 6 steps); one injected failure.
+# room for phases 20 and 21 inside its 600 s); AdamW as launch/train.py
+# builds it but with 2 warm-up steps (its 100 would keep the learning
+# rate too small to move the loss in 6 steps); one injected failure.
 TRAIN = dict(arch="mamba2-1.3b", depth=12, batch=4, seq=2048, steps=6,
              checkpoint_every=2, fail_at=3, lr=1e-3, warmup_steps=2,
              seed=19)
@@ -2655,7 +2684,7 @@ def phase_dist() -> None:
     ``attn_impl="seq_shard"``; ``reshard`` and a ``CheckpointManager``
     save + ``restore(shardings=...)`` of its parameters onto the mesh's
     placements, bit for bit.  The process group is global state, so this
-    phase runs last and destroys it."""
+    phase destroys it at its end (phase 21 brings up its own)."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import model as M
@@ -2863,6 +2892,118 @@ def dist_checkpoint(cfg, params, mesh) -> None:
     shutil.rmtree(DIST_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the dry run on the card's terms.
+# (a) fake dry runs at full size: (arch, shape, multi-pod, attn_override)
+DRYRUN_FAKE = [("qwen2-7b", "decode_32k", False, "cuda"),
+               ("h2o-danube-1.8b", "long_500k", False, None),
+               ("mamba2-1.3b", "prefill_32k", True, "cuda"),
+               ("whisper-small", "train_4k", True, None)]
+# (b) one-card runs, every layer at full width, the batch cut only for one
+# card's memory: (arch, shape, batch, flash launches a step must make)
+DRYRUN_REAL = [("h2o-danube-1.8b", "prefill_32k", 1, 0),
+               ("qwen2-7b", "decode_32k", 8, 0),
+               ("h2o-danube-1.8b", "long_500k", 1, 0),
+               ("whisper-small", "decode_32k", 8, 12)]
+DRYRUN_SEED = 29
+# the predicted temp against the measured peak above the arguments
+TEMP_BAND = 0.15
+
+
+def phase_dryrun() -> None:
+    """Phase 21 (see the module docstring)."""
+    from repro_torch.launch import dryrun
+    for arch, shape, multi, override in DRYRUN_FAKE:
+        rec = dryrun.run_cell(arch, shape, multi, attn_override=override,
+                              device=DEVICE)
+        assert rec["status"] == "ok", (arch, shape, rec.get("traceback"))
+        mem, r = rec["memory"], rec["roofline"]
+        say(21, f"(a) fake {arch} {shape} on the {rec['mesh']} mesh "
+                f"({rec['chips']} ranks, attn {override or 'default'}): "
+                f"{rec['run_s']} s; per device args "
+                f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, outputs "
+                f"{mem['output_size_in_bytes'] / 1e9:.3f} GB; "
+                f"{rec['flops']:.4e} FLOPs, {rec['bytes_accessed']:.4e} "
+                f"bytes accessed; collectives "
+                f"{rec['collectives']['bytes_by_kind']}; roofline "
+                f"(data-sheet prediction) compute {r['compute_s']:.4e} s, "
+                f"memory {r['memory_s']:.4e} s, collective "
+                f"{r['collective_s']:.4e} s, dominant {r['dominant']}")
+    for arch, shape, batch, flash in DRYRUN_REAL:
+        dryrun_one_card(arch, shape, batch, flash)
+
+
+def dryrun_one_card(arch: str, shape: str, batch: int, flash: int) -> None:
+    """Phase 21(b): one cell fake on a one-rank fake mesh, then real on
+    the card, held to each other (see the module docstring)."""
+    from repro_torch import configs
+    from repro_torch.dist import context
+    from repro_torch.launch import dryrun, shapes, steps
+    from repro_torch.launch import mesh as mesh_mod
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = configs.get(arch)
+    cell = dataclasses.replace(shapes.make_cell(arch, shape),
+                               global_batch=batch)
+    one = ((1, 1), ("data", "model"))
+    mesh = mesh_mod.make_fake_mesh(False, device=DEVICE, shape=one[0],
+                                   axes=one[1])
+    try:
+        case = steps.make_case(cfg, cell, mesh, attn_override="cuda",
+                               device=DEVICE)
+        fake, fake_s = dryrun.run_case(case, mesh)
+        roof = dryrun.roofline_terms(
+            {**fake, "chips": 1, "kind": cell.kind, "seq_len": cell.seq_len,
+             "global_batch": batch,
+             "collective_bytes": fake["collectives"]["total_bytes"]},
+            case.cfg)
+        del case
+        free_card()
+        gen = torch.Generator(device=DEVICE).manual_seed(DRYRUN_SEED)
+        real = steps.make_case(cfg, cell, mesh, attn_override="cuda",
+                               device=DEVICE, fill=steps.real_fill(gen))
+        torch.ones(8, 8, device=DEVICE) @ torch.ones(8, 8, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got, _ = dryrun.run_case(real, mesh)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with context.use_mesh(mesh), implicit_replication():
+            out = real.fn(*real.args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = launch_counts()
+        del out, real
+        free_card()
+    finally:
+        mesh_mod.destroy_fake_mesh()
+    assert fake["flops"] == got["flops"], (arch, shape, fake["flops"],
+                                           got["flops"])
+    args = fake["memory"]["argument_size_in_bytes"]
+    assert args == got["memory"]["argument_size_in_bytes"], (
+        arch, shape, args, got["memory"]["argument_size_in_bytes"])
+    temp = fake["memory"]["temp_size_in_bytes"]
+    miss = abs(temp - measured) / measured
+    assert miss <= TEMP_BAND, (arch, shape, temp, measured, miss)
+    assert launches["flash_attention"] == flash, (arch, shape, launches)
+    say(21, f"(b) {arch} {shape} at batch {batch} of "
+            f"{shapes.make_cell(arch, shape).global_batch}, one rank: fake "
+            f"run {fake_s:.1f} s; FLOPs fake {fake['flops']:.6e} == real "
+            f"{got['flops']:.6e}; argument bytes {args} == real; temp "
+            f"predicted {temp / 1e9:.3f} GB vs measured peak above the "
+            f"arguments {measured / 1e9:.3f} GB ({100 * miss:.1f} % apart, "
+            f"band {100 * TEMP_BAND:.0f} %); step {step_s * 1e3:.1f} ms "
+            f"measured vs roofline bound {roof['bound_s'] * 1e3:.3f} ms "
+            f"({roof['dominant']}; {100 * roof['bound_s'] / step_s:.2f} % "
+            f"of it); flash launches per step "
+            f"{launches['flash_attention']}, ssd "
+            f"{launches['ssd_scan']} [{CARD}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2924,7 +3065,8 @@ def main() -> int:
     free_card()
     phase_training()
     phase_dist()
-    say(20, f"whole run {time.perf_counter() - t0:.1f} s")
+    phase_dryrun()
+    say(21, f"whole run {time.perf_counter() - t0:.1f} s")
     names = (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS,
              "flash_attention", "ssd_scan")
     record = {"kernels": [{

@@ -17,6 +17,22 @@ works on more than ``S / n_shards`` keys.  The reference's ``ppermute``
 with ``perm=[(j, j + 1 mod n)]`` is one ``batch_isend_irecv`` within the
 ``model`` group: after step s a rank holds the chunk of rank
 ``(i - s) mod n``.
+
+The ring runs on local chunks (``ring_attention_local``).  Two layouts
+of the cache reach it:
+
+* a cache stored sharded by sequence (``cache_specs(seq_shard=True)``:
+  the DTensor caches of ``launch.steps.make_case`` and of a prefill of
+  DTensor tokens, whose decode step writes each new row on the owning
+  rank): ``models.layers``' sharded attention block passes each rank's
+  own chunk, so no rank ever holds the whole cache;
+* the *whole* cache on every rank (plain tensors, when the model runs
+  per rank under a live mesh, as the serving of ``chip_smoke.py`` phase
+  20 and the gloo serving tests do): ``models.layers.attention_call``
+  passes it to ``seq_sharded_attention``, which takes the rank's batch
+  rows and sequence chunk from it (and is the reference function's
+  counterpart, over whole arrays).  Storing these caches sharded too is
+  open (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -125,13 +141,9 @@ def seq_sharded_attention(q, k, v, *, causal: bool = True,
                                   scale=scale, q_offset=q_offset)
 
     n = int(mesh.shape[seq_axis])
-    b, hq, sq, d = q.shape
+    b, hq = q.shape[:2]
     _, hkv, skv, _ = k.shape
     assert hq % hkv == 0, (hq, hkv)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    off = skv - sq if q_offset is None else q_offset
-
     pad = (-skv) % n
     if pad:
         k = F.pad(k, (0, 0, 0, pad))
@@ -143,8 +155,29 @@ def seq_sharded_attention(q, k, v, *, causal: bool = True,
     qb = sharding.local_rows(mesh, q, entry)
     kb = sharding.local_rows(mesh, k, entry).narrow(2, i * chunk, chunk)
     vb = sharding.local_rows(mesh, v, entry).narrow(2, i * chunk, chunk)
-    out = _ring_attention(qb, kb, vb, off, mesh=mesh, axis=seq_axis, n=n,
-                          chunk=chunk, skv=skv, causal=causal, window=window,
-                          scale=scale)
+    out = ring_attention_local(qb, kb, vb, skv=skv, causal=causal,
+                               window=window, q_offset=q_offset,
+                               scale=scale, seq_axis=seq_axis)
     axes = sharding.entry_axes(entry)
     return collectives.all_gather(out, mesh.group(axes)) if axes else out
+
+
+def ring_attention_local(q, k, v, *, skv: int, causal: bool = True,
+                         window: Optional[int] = None, q_offset=None,
+                         scale: Optional[float] = None,
+                         seq_axis: str = "model"):
+    """The ring on a cache stored sharded by sequence: q (b, Hq, Sq, D)
+    this rank's batch rows, whole over ``seq_axis``; k, v (b, Hkv, chunk,
+    D) this rank's chunk of a cache of ``skv`` rows, the chunks laid out
+    in ``seq_axis`` order.  Returns this rank's rows of the result; no
+    rank ever holds more than its chunk (``launch.steps.make_case``'s
+    ``long_500k`` cells, through ``models.layers``' sharded attention)."""
+    mesh = context.current_mesh()
+    n = int(mesh.shape[seq_axis])
+    sq, d = q.shape[2], q.shape[3]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    off = skv - sq if q_offset is None else q_offset
+    return _ring_attention(q, k, v, off, mesh=mesh, axis=seq_axis, n=n,
+                           chunk=k.shape[2], skv=skv, causal=causal,
+                           window=window, scale=scale)

@@ -151,6 +151,12 @@ def batch_entry(mesh, b: int):
     return _entry(tuple(kept))
 
 
+def batch_axes(mesh):
+    """The spec entry of the batch axes present in ``mesh``:
+    ``("pod", "data")``, ``"data"`` or None."""
+    return _entry(context.data_axes(mesh))
+
+
 def batch_spec(mesh) -> P:
     """Spec for the leading (global batch) dimension: all batch axes
     grouped, e.g. ``P(("pod", "data"))``, or ``P()`` on a mesh with no
@@ -208,6 +214,84 @@ def place(x, sharding: NamedSharding):
         x = torch.as_tensor(np.asarray(x))
     return distribute_tensor(x, sharding.mesh.device_mesh,
                              sharding.placements)
+
+
+def constrain(x, spec, mesh):
+    """A DTensor ``x`` redistributed to ``spec`` (clamped by ``fit_spec``)
+    on the live ``mesh``: the port's ``with_sharding_constraint``.
+    DTensor inserts the collectives the change of layout needs."""
+    target = NamedSharding(mesh, fit_spec(spec, tuple(x.shape), mesh))
+    placements = target.placements
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh.device_mesh, placements)
+
+
+def placements(spec, mesh, partial: tuple[str, ...] = ()) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh`` (already fitted), with
+    ``Partial()`` (a pending sum) on the mesh axes in ``partial``."""
+    from torch.distributed.tensor import Partial
+    out = list(NamedSharding(mesh, P(*spec)).placements)
+    for a in partial:
+        out[mesh.axis_names.index(a)] = Partial()
+    return tuple(out)
+
+
+def local_region(mesh, fn, inputs, out_specs, *, partial=()):
+    """Run ``fn`` on each rank's local shards: the port's ``shard_map``
+    inside the dry run's global program.  ``inputs`` is a list of
+    ``(value, spec)``: a DTensor is redistributed to its spec (fitted)
+    and handed to ``fn`` as its local shard; any other value (spec None)
+    as it is.  ``fn`` returns a tuple of tensors, one per entry of
+    ``out_specs`` (a spec, or None for a value that is not wrapped); each
+    comes back a DTensor on its spec, with ``Partial()`` on the axes in
+    ``partial`` (the entries of that tuple name, per output, its pending
+    sums).  Differentiable: ``redistribute``, ``to_local`` and
+    ``from_local`` all are; an input replicated over an axis that another
+    input or an output splits takes its gradient as a pending sum over
+    that axis (each rank's part of it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    split = {a for _, spec in inputs if spec is not None
+             for e in spec for a in entry_axes(e)}
+    split |= {a for spec in out_specs if spec is not None
+              for e in spec for a in entry_axes(e)}
+    args = []
+    for value, spec in inputs:
+        if isinstance(value, DTensor):
+            value = constrain(value, spec, mesh)
+            # a replicated input read by shards split over an axis gets
+            # its gradient as a pending sum over that axis
+            grad = tuple(Partial() if isinstance(pl, Replicate) and a in split
+                         else pl for a, pl in zip(mesh.axis_names,
+                                                  value.placements))
+            value = value.to_local(grad_placements=grad)
+        args.append(value)
+    outs = fn(*args)
+    wrapped = []
+    for i, (out, spec) in enumerate(zip(outs, out_specs)):
+        if spec is None or not isinstance(out, torch.Tensor):
+            wrapped.append(out)
+            continue
+        pend = partial[i] if partial else ()
+        wrapped.append(DTensor.from_local(
+            out, mesh.device_mesh, placements(spec, mesh, pend),
+            run_check=False))
+    return tuple(wrapped)
+
+
+def gather_batch_axes(x, mesh):
+    """The FSDP gather of a DTensor parameter: every placement on a batch
+    axis (``pod``, ``data``) made ``Replicate``, the ``model`` axis kept
+    (ZeRO-3: each layer's weights are gathered where they are used, and
+    the gradient's way back is a reduce-scatter)."""
+    from torch.distributed.tensor import Replicate, Shard
+    batch = set(context.data_axes(mesh))
+    placements = tuple(
+        Replicate() if a in batch and isinstance(p, Shard) else p
+        for a, p in zip(mesh.axis_names, x.placements))
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(mesh.device_mesh, placements)
 
 
 def param_specs(cfg, mesh, rules: Optional[dict] = None) -> Any:

@@ -102,8 +102,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in
     q.dtype.  ``block_q`` / ``block_k`` are the reference's tiling
     arguments, accepted and unused: the kernel tiles by its own sizes and
-    masks the ragged tails."""
-    global launches
+    masks the ragged tails.  On CUDA tensors it calls the custom op
+    ``torch.ops.repro_torch.flash_attention`` (fake tensors take its fake
+    implementation, so a dry run traces through it)."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, scale=scale)
@@ -111,25 +112,95 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
     no_backward("flash_attention", q, k, v)
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    d = q.shape[3]
     if q.dtype not in _DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes float32 or bfloat16 with head "
                          f"width in {HEAD_DIMS}, got {q.dtype}, d={d}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, causal, window if window else 0, float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, scale: float) -> torch.Tensor:
+    """The CUDA implementation: one launch of ``csrc/flash_attention.cu``
+    on the current stream (``window`` 0: none)."""
+    global launches
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k and v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel copies 16-byte chunks: q, k and v "
                          "must start at 16-byte aligned addresses")
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     lib = load_library()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        sq, skv, d, 1 if causal else 0, window if window else 0,
-        float(scale), _DTYPES[q.dtype], stream)
+        sq, skv, d, 1 if causal else 0, window, float(scale),
+        _DTYPES[q.dtype], stream)
     LIBRARY.check(err)
     launches += 1
     return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return torch.empty_like(q)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave, queries at the kv tail: query
+    i at position p = skv - sq + i sees keys lo..hi, hi = min(p, skv - 1)
+    (causal) or skv - 1, lo = max(p - window + 1, 0) (window) or 0."""
+    total = 0
+    for i in range(sq):
+        p = skv - sq + i
+        hi = min(p, skv - 1) if causal else skv - 1
+        lo = max(p - window + 1, 0) if window else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def flops(q_shape, k_shape, causal: bool, window) -> int:
+    """The kernel's work: two products of 2*D operations per visible
+    (query, key) pair and query head (``chip_smoke.py``'s bound counts
+    the same)."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * d * visible_pairs(sq, k_shape[2], causal, window)
+
+
+def _register_counts() -> None:
+    """The op's FLOP formula (``torch.utils.flop_counter``: without it
+    the kernel's work would vanish from every count) and its DTensor
+    sharding rule: batch split, heads split (query and K/V heads alike,
+    where both divide the mesh), or everything replicated."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, v_shape, causal, window, scale, *a, **kw):
+        return flops(q_shape, k_shape, causal, window)
+
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, causal, window, scale):
+        rest = [None, None, None]
+        out = [([Shard(0)], [Shard(0)] * 3 + rest),
+               ([Replicate()], [Replicate()] * 3 + rest)]
+        # the heads split as the query's are, or over the whole mesh; an
+        # uneven split would pair query heads with the wrong K/V heads
+        split = [q.mesh.size(d) for d, pl in enumerate(q.placements)
+                 if pl == Shard(1)]
+        n = math.prod(split) if split else q.mesh.size()
+        if q.shape[1] % n == 0 and k.shape[1] % n == 0:
+            out.append(([Shard(1)], [Shard(1)] * 3 + rest))
+        return out
+
+
+_register_counts()

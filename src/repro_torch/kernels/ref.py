@@ -140,39 +140,41 @@ def ssd_ref(x, dt, a, b, c):
 def ssd_chunked_ref(x, dt, a, b, c, chunk: int = 16):
     """Chunked SSD: the algorithm of the CUDA kernel (intra-chunk
     quadratic term + inter-chunk state passing), state (B, H, N, P).
-    Returns y (B, H, S, P) float32; S must tile by ``chunk``."""
+    Returns y (B, H, S, P) float32; S must tile by ``chunk``.  Every
+    chunk's own terms are computed at once (batched over the chunks);
+    only the state passing runs chunk by chunk."""
     bsz, h, s, p = x.shape
     g, n = b.shape[1], b.shape[3]
     rep = h // g
     assert s % chunk == 0
-    bb = b.repeat_interleave(rep, dim=1).float()
-    cc = c.repeat_interleave(rep, dim=1).float()
-    xf, dtf = x.float(), dt.float()
-    lg = dtf * a.float()[None, :, None]                        # log-decay
+    nc = s // chunk
+
+    def chunks(t):   # (B, H, S, ...) -> (B, H, nc, L, ...)
+        return t.reshape((bsz, h, nc, chunk) + tuple(t.shape[3:]))
+    bc = chunks(b.repeat_interleave(rep, dim=1).float())
+    ccx = chunks(c.repeat_interleave(rep, dim=1).float())
+    xc, dc = chunks(x.float()), chunks(dt.float())
+    cum = torch.cumsum(chunks(dt.float() * a.float()[None, :, None]),
+                       dim=-1)                                 # log-decay
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
+    # intra-chunk: M[t,u] = (c_t.b_u) exp(cum_t - cum_u) dt_u, u <= t.
+    # exp overflows above the diagonal: mask the exponent to -inf there,
+    # so that neither the value nor its gradient meets inf (a select
+    # after the exp keeps the value but not the gradient: 0 * inf is nan).
+    m = ccx @ bc.transpose(-1, -2)
+    decay = torch.exp(torch.where(
+        tri, cum[..., :, None] - cum[..., None, :], float("-inf")))
+    y = (m * decay * dc[..., None, :]) @ xc
+    # each chunk's own state update, with w_u = exp(cum_L - cum_u) dt_u
+    w = torch.exp(cum[..., -1:] - cum) * dc
+    d_state = (bc * w[..., None]).transpose(-1, -2) @ xc       # (B,H,nc,N,P)
+    carry = torch.exp(cum[..., -1])                           # (B,H,nc)
     state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
-    ys = []
-    for i in range(s // chunk):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        cum = torch.cumsum(lg[:, :, sl], dim=-1)               # (B,H,L)
-        xc, dc = xf[:, :, sl], dtf[:, :, sl]
-        bc, ccx = bb[:, :, sl], cc[:, :, sl]
-        # intra-chunk: M[t,u] = (c_t.b_u) exp(cum_t - cum_u) dt_u, u <= t.
-        # exp overflows above the diagonal: mask the exponent to -inf
-        # there, so that neither the value nor its gradient meets inf
-        # (a select after the exp keeps the value but not the gradient:
-        # 0 * inf is nan).
-        m = ccx @ bc.transpose(-1, -2)
-        decay = torch.exp(torch.where(
-            tri, cum[..., :, None] - cum[..., None, :], float("-inf")))
-        m = m * decay * dc[..., None, :]
-        y = m @ xc
-        # inter-chunk: the incoming state's contribution
-        y = y + torch.exp(cum)[..., None] * (ccx @ state)
-        # state update, with w_u = exp(cum_L - cum_u) dt_u
-        w = torch.exp(cum[..., -1:] - cum) * dc
-        state = torch.exp(cum[..., -1])[..., None, None] * state + \
-            (bc * w[..., None]).transpose(-1, -2) @ xc
-        ys.append(y)
-    return torch.cat(ys, dim=2)
+    incoming = []
+    for i in range(nc):
+        incoming.append(state)
+        state = carry[:, :, i, None, None] * state + d_state[:, :, i]
+    # inter-chunk: the incoming state's contribution
+    y = y + torch.exp(cum)[..., None] * (ccx @ torch.stack(incoming, 2))
+    return y.reshape(bsz, h, s, p)

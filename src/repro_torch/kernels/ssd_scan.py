@@ -193,8 +193,9 @@ def _aligned(t):
 def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, split: int | None = None):
     """x: (B, H, S, P); dt: (B, H, S); a: (H,); b, c: (B, G, S, N) with
     H % G == 0.  Returns y: (B, H, S, P) in x.dtype.  ``split`` forces the
-    kernel's k (tests and timings only; ``plan`` picks it)."""
-    global launches
+    kernel's k (tests and timings only; ``plan`` picks it).  On CUDA
+    tensors it calls the custom op ``torch.ops.repro_torch.ssd_scan``
+    (fake tensors take its fake implementation)."""
     _check(x, dt, a, b, c, chunk)
     if x.device.type == "cpu":
         return plain(x, dt, a, b, c, chunk=chunk)
@@ -202,15 +203,27 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, split: int | None = None):
         raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got "
                          f"{x.device}")
     no_backward("ssd_scan", x, dt, a, b, c)
-    bsz, h, s, p = x.shape
-    g, n = b.shape[1], b.shape[3]
-    chunk = min(chunk, s)
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise ValueError(f"the kernel takes x, b and c in one of float32 or "
                          f"bfloat16, got {x.dtype}, {b.dtype}, {c.dtype}")
+    return torch.ops.repro_torch.ssd_scan(x, dt, a, b, c,
+                                          min(chunk, x.shape[2]),
+                                          split if split else 0)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, chunk: int,
+            split: int) -> torch.Tensor:
+    """The CUDA implementation: one launch of ``csrc/ssd_scan.cu`` on the
+    current stream (``split`` 0: ``plan``'s k)."""
+    global launches
     if not (x.is_contiguous() and b.is_contiguous() and c.is_contiguous()):
         raise ValueError("the kernel takes contiguous x, b and c")
-    k, _, shared = plan(bsz * h, chunk, n, p, x.dtype, split=split)
+    bsz, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[3]
+    k, _, shared = plan(bsz * h, chunk, n, p, x.dtype, split=split or None)
     n_k, p_k = kernel_dims(n, p, x.dtype)
     if x.dtype == torch.bfloat16:
         # Zero columns of b and c add nothing to C B^T or to the state;
@@ -237,4 +250,49 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, split: int | None = None):
         _DTYPES[x.dtype], stream)
     LIBRARY.check(err)
     launches += 1
-    return y[..., :p] if p_k != p else y
+    return (y[..., :p] if p_k != p else y).contiguous()
+
+
+@_ssd_op.register_fake
+def _(x, dt, a, b, c, chunk, split):
+    return torch.empty_like(x)
+
+
+def flops(x_shape, b_shape, chunk: int) -> int:
+    """The kernel's work per call: per chunk and head the four products,
+    C.B^T and M @ X over the lower triangle's L(L+1)/2 pairs, C @ state
+    and the state update B^T @ X, 2 operations a multiply-add
+    (``chip_smoke.py``'s bound counts the same)."""
+    bsz, h, s, p = x_shape
+    n = b_shape[3]
+    tri = chunk * (chunk + 1) // 2
+    return bsz * h * (s // chunk) * 2 * (tri * n + tri * p + 2 * chunk * n * p)
+
+
+def _register_counts() -> None:
+    """The op's FLOP formula and its DTensor sharding rule: batch split,
+    heads split (with one group of B and C, whole on every rank), or
+    everything replicated."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan)
+    def _(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, split, *a,
+          **kw):
+        return flops(x_shape, b_shape, chunk)
+
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.ssd_scan.default)
+    def _(x, dt, a, b, c, chunk, split):
+        rest = [None, None]
+        out = [([Shard(0)], [Shard(0), Shard(0), Replicate(), Shard(0),
+                             Shard(0)] + rest),
+               ([Replicate()], [Replicate()] * 5 + rest)]
+        if b.shape[1] == 1:
+            out.append(([Shard(1)], [Shard(1), Shard(1), Shard(0),
+                                     Replicate(), Replicate()] + rest))
+        return out
+
+
+_register_counts()

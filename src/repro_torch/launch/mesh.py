@@ -39,6 +39,9 @@ class Mesh:
         self.device_mesh = device_mesh
         self._groups: dict = {}
         if device_mesh is not None:
+            # the ranks as plain ints, read with no tensor op (a dry run
+            # asks for peers inside a FakeTensorMode)
+            self._grid = self._ranks().tolist()
             self._make_groups()
 
     @property
@@ -112,7 +115,10 @@ class Mesh:
         ``axis`` set to ``index``."""
         coord = self.coordinate()
         coord[axis] = index
-        return int(self._ranks()[tuple(coord[a] for a in self.axis_names)])
+        ranks = self._grid
+        for a in self.axis_names:
+            ranks = ranks[coord[a]]
+        return int(ranks)
 
     def __repr__(self) -> str:
         kind = "live" if self.live else "abstract"
@@ -149,6 +155,50 @@ def make_dev_mesh(shape=(2, 2), axes=("data", "model"), *,
                            "and none is available; pass device='cpu'")
     dm = init_device_mesh(device, shape, mesh_dim_names=tuple(axes))
     return Mesh(shape, axes, dm)
+
+
+def make_fake_mesh(multi_pod: bool, rank: int = 0, *,
+                   device: str = "cuda", shape=None, axes=None) -> Mesh:
+    """A live production mesh in one process, for the dry run: brings up
+    PyTorch's simulated world (the ``"fake"`` process-group backend, whose
+    collectives return at once and move nothing) of world size 256 or
+    512 as ``rank``, and returns ``make_dev_mesh`` over it.  ``shape`` /
+    ``axes`` give another mesh (tests: (2, 2, 2)).  No card is needed:
+    the ``DeviceMesh`` names ``device`` and holds no memory.
+
+    Rank 0 stands for every rank: ``fit_spec`` shards only evenly divisible
+    dimensions, so every rank's local shapes, and so its counts, are rank
+    0's.  The process group is process-global state: end it with
+    ``destroy_fake_mesh`` (in a ``finally``) before any other group."""
+    import torch.distributed as dist
+    # PyTorch's own simulated-world backend (its ``"fake"`` process group,
+    # kept under ``torch.testing._internal``); the one import of it here.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if shape is None:
+        prod = make_production_mesh(multi_pod=multi_pod)
+        shape = tuple(prod.shape[a] for a in prod.axis_names)
+        axes = prod.axis_names
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up; destroy it "
+                           "before make_fake_mesh")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(shape))
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh(device, tuple(shape), mesh_dim_names=tuple(axes))
+    return Mesh(shape, axes, dm)
+
+
+def destroy_fake_mesh() -> None:
+    """End the process group ``make_fake_mesh`` brought up (a no-op when
+    none is up), and DTensor's caches of sharding decisions and
+    redistribution plans: they are keyed by mesh, and the mesh of another
+    rank compares equal to this one but holds other groups."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import _redistribute, debug
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _redistribute.clear_redistribute_planner_cache()
+    debug._clear_sharding_prop_cache()
 
 
 def describe(mesh: Mesh) -> dict:

@@ -13,9 +13,11 @@ plain route, the reference's ``"xla"``) or ``"seq_shard"`` (the plain
 route, with every one-row query sent to the distribution layer's
 ``dist.decode_attn.seq_sharded_attention``, which shards the cache's
 sequence over the ambient mesh's ``model`` axis).  ``act_shard`` and
-``fsdp_gather_dtype`` steer the reference's GSPMD layout hints, which
-have no eager counterpart (``layers.constrain_btd``): the port keeps them
-as fields and they do nothing.
+``fsdp_gather_dtype`` steer the reference's GSPMD layout hints: on
+DTensors under a live mesh (the dry run) ``layers.constrain_btd`` lays
+the activations out by ``act_shard`` and ``model.params_for_compute``
+casts before or after the FSDP gather by ``fsdp_gather_dtype``; on plain
+tensors they change nothing.
 
 Layer kinds:
     attn    — self-attention (GQA / optional sliding window) + MLP
@@ -87,8 +89,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     max_seq: int = 8192
     attn_impl: str = "cuda"          # cuda | torch | seq_shard (decode)
-    act_shard: str = "model_d"       # a layout hint: no eager effect
-    fsdp_gather_dtype: str = "f32"   # a layout hint: no eager effect
+    act_shard: str = "model_d"       # layout hint (DTensors only)
+    fsdp_gather_dtype: str = "f32"   # layout hint (DTensors only)
     remat: bool = True
     # loss
     loss_seq_chunk: int = 1024       # CE computed in sequence chunks

@@ -107,57 +107,106 @@ def norm_meta(cfg: ModelConfig) -> dict:
     return d
 
 
+def _dtensor_mesh(x):
+    """The ambient live mesh when ``x`` is a DTensor (the dry run's global
+    program), else None: on plain tensors the layout hints are
+    identities."""
+    from repro_torch.dist import context
+    mesh = context.current_mesh()
+    if mesh is None or not mesh.live:
+        return None
+    from torch.distributed.tensor import DTensor
+    return mesh if isinstance(x, DTensor) else None
+
+
 def constrain_btd(cfg, x):
-    """Identity, under a live mesh too.  The reference's version is a GSPMD
-    layout hint (``with_sharding_constraint`` per ``cfg.act_shard``) for
-    the compiler that partitions its global program; it changes no value.
-    The port has no such compiler: its model runs per rank on local
-    tensors, as the reference's ``shard_map`` bodies run under
-    ``suspend_mesh``, where the hint is a no-op as well."""
-    return x
+    """Shard a (B, S, d) activation per ``cfg.act_shard`` (the reference's
+    GSPMD hint ``with_sharding_constraint``): on a DTensor under a live
+    mesh it is redistributed to that layout (batch over the batch axes;
+    ``model_seq`` the sequence, ``model_d`` the width over ``model``;
+    ``none`` neither), which is where the reference's partitioner puts
+    the collectives.  On plain tensors, and without a mesh, an identity:
+    no value changes either way."""
+    mesh = _dtensor_mesh(x)
+    if mesh is None or x.dim() != 3:
+        return x
+    from repro_torch.dist import sharding as shd
+    return shd.constrain(x, act_spec(cfg, mesh), mesh)
+
+
+def act_spec(cfg, mesh):
+    """The (B, S, d) activations' spec per ``cfg.act_shard`` (see
+    ``constrain_btd``)."""
+    from repro_torch.dist import sharding as shd
+    b = shd.batch_axes(mesh)
+    model = "model" if "model" in mesh.axis_names else None
+    if cfg.act_shard == "model_seq":
+        return shd.P(b, model, None)
+    if cfg.act_shard == "model_d":
+        return shd.P(b, None, model)
+    return shd.P(b, None, None)
 
 
 def constrain_inner(x, dim: int):
-    """Identity, as ``constrain_btd`` (the reference's hint to shard an
-    inner activation's ``dim`` over ``model``)."""
-    return x
+    """Shard an inner activation's ``dim`` (heads / ff / d_inner) over
+    ``model`` where it divides, batch over the batch axes (the reference's
+    Megatron hint); an identity on plain tensors, as ``constrain_btd``."""
+    mesh = _dtensor_mesh(x)
+    if mesh is None or "model" not in mesh.axis_names:
+        return x
+    from repro_torch.dist import sharding as shd
+    parts = [shd.batch_axes(mesh)]
+    parts += [None] * (x.dim() - 1)
+    parts[dim] = "model"
+    return shd.constrain(x, shd.P(*parts), mesh)
+
+
+def _mean_last(x):
+    """Mean over the last dimension.  A DTensor split there takes it as a
+    sum over the width (a pending sum, not DTensor's pending average,
+    whose gradient it cannot redistribute); plain tensors ``torch.mean``."""
+    if _dtensor_mesh(x) is not None:
+        return x.sum(dim=-1, keepdim=True) / x.shape[-1]
+    return torch.mean(x, dim=-1, keepdim=True)
 
 
 def apply_norm(cfg: ModelConfig, p, x):
-    xf = x.float()
+    xf = constrain_btd(cfg, x.float())
     if cfg.norm == "rmsnorm":
-        inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+        inv = torch.rsqrt(_mean_last(xf * xf) + 1e-6)
         out = xf * inv * p["scale"].float()
     else:
-        mu = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        mu = _mean_last(xf)
+        var = _mean_last((xf - mu) ** 2)
         out = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"].float() \
             + p["bias"].float()
-    return out.to(x.dtype)
+    return constrain_btd(cfg, out).to(x.dtype)
 
 
-def rope(q, k, positions, theta: float):
+def rope(q, k, positions, theta: float, q_positions=None):
     """Rotary embeddings on interleaved pairs (x[..., ::2], x[..., 1::2]),
     as the reference rotates them.  q/k: (B, H, S, D); positions: (S,) or
-    (B, S)."""
+    (B, S); ``q_positions`` those of q where they differ from k's (a
+    rank's rows of the sequence)."""
     d = q.shape[-1]
     freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                           device=q.device) / d))
-    if positions.dim() == 1:
-        ang = positions.float()[:, None] * freqs[None, :]
-        ang = ang[None, None]                       # (1,1,S,D/2)
-    else:
-        ang = positions.float()[..., None] * freqs
-        ang = ang[:, None]                          # (B,1,S,D/2)
-    cos, sin = torch.cos(ang), torch.sin(ang)
 
-    def rot(x):
+    def rot(x, positions):
+        if positions.dim() == 1:
+            ang = positions.float()[:, None] * freqs[None, :]
+            ang = ang[None, None]                       # (1,1,S,D/2)
+        else:
+            ang = positions.float()[..., None] * freqs
+            ang = ang[:, None]                          # (B,1,S,D/2)
+        cos, sin = torch.cos(ang), torch.sin(ang)
         x1, x2 = x[..., ::2], x[..., 1::2]
         xr1 = x1 * cos - x2 * sin
         xr2 = x2 * cos + x1 * sin
         return torch.stack([xr1, xr2], dim=-1).reshape(x.shape).to(x.dtype)
 
-    return rot(q), rot(k)
+    return (rot(q, positions if q_positions is None else q_positions),
+            rot(k, positions))
 
 
 # ---------------------------------------------------------------------------
@@ -200,19 +249,54 @@ def mlp_meta(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
 
 def apply_mlp(cfg: ModelConfig, p, x):
     y = apply_norm(cfg, p["ln"], x)
+    mesh = _dtensor_mesh(y)
+    if mesh is not None:
+        return x + _mlp_sharded(cfg, p, y, mesh)
+    return x + _mlp(cfg, p, y)
+
+
+def _mlp(cfg: ModelConfig, p, y):
     if cfg.act == "swiglu":
-        h = F.silu(y @ p["wg"]) * (y @ p["wu"])
-        return x + h @ p["wd"]
+        h = constrain_inner(F.silu(y @ p["wg"]) * (y @ p["wu"]), 2)
+        return h @ p["wd"]
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(y @ p["w1"] + p["b1"], approximate="tanh")
-    return x + (h @ p["w2"] + p["b2"])
+    h = constrain_inner(F.gelu(y @ p["w1"] + p["b1"], approximate="tanh"), 2)
+    return h @ p["w2"] + p["b2"]
+
+
+def _mlp_sharded(cfg: ModelConfig, p, y, mesh):
+    """``_mlp`` on each rank's shards, Megatron-style: the hidden width
+    over ``model`` where it divides (the first products' columns, the last
+    one's rows), the output a pending sum over ``model``; the batch over
+    the batch axes.  (The second bias joins once, outside the sum.)"""
+    from repro_torch.dist import sharding as shd
+    m = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
+    b = shd.batch_axes(mesh)
+    fm = "model" if m > 1 and cfg.d_ff % m == 0 else None
+    rows = shd.fit_spec(shd.P(b, None, None), tuple(y.shape), mesh)
+    specs = {"wg": shd.P(None, fm), "wu": shd.P(None, fm),
+             "wd": shd.P(fm, None), "w1": shd.P(None, fm), "b1": shd.P(fm),
+             "w2": shd.P(fm, None)}
+    keys = sorted(k for k in p if k in specs)
+
+    def body(yy, *ws):
+        lp = dict(zip(keys, ws))
+        if cfg.act == "swiglu":
+            return (_mlp(cfg, lp, yy),)
+        h = F.gelu(yy @ lp["w1"] + lp["b1"], approximate="tanh")
+        return (h @ lp["w2"],)
+
+    (out,) = shd.local_region(
+        mesh, body, [(y, rows)] + [(p[k], specs[k]) for k in keys], [rows],
+        partial=((("model",) if fm else ()),))
+    return out if cfg.act == "swiglu" else out + p["b2"]
 
 
 def _project_q(p, y):
     q = torch.einsum("btd,dhk->bhtk", y, p["wq"])
     if "bq" in p:
         q = q + p["bq"][None, :, None, :]
-    return q
+    return constrain_inner(q, 1)
 
 
 def _project_kv(p, src):
@@ -221,21 +305,27 @@ def _project_kv(p, src):
     if "bk" in p:
         k = k + p["bk"][None, :, None, :]
         v = v + p["bv"][None, :, None, :]
-    return k, v
+    return constrain_inner(k, 1), constrain_inner(v, 1)
 
 
 def attention_call(cfg: ModelConfig, q, k, v, *, causal, window,
-                   q_offset=None):
+                   q_offset=None, ring=None):
     """Dispatch as the reference does: under ``attn_impl="seq_shard"`` a
     one-row query (decode) goes to ``dist.decode_attn``'s
-    sequence-sharded attention (the plain route without a mesh); a call
-    with a ``q_offset`` (self-attention against a cache), ``"torch"`` or
+    sequence-sharded attention (the plain route without a mesh; with
+    ``ring`` = (the whole cache's length, this rank's chunk offset), k/v
+    are this rank's chunk of a cache stored sharded); a call with a
+    ``q_offset`` (self-attention against a cache), ``"torch"`` or
     ``"seq_shard"`` takes the plain route (chunked above 1 024 queries);
     under ``"cuda"`` every other call reaches the kernel: the cache-free
     forward and every cross-attention call, prefill and decode included,
     at any length."""
     if cfg.attn_impl == "seq_shard" and q.shape[2] == 1:
         from repro_torch.dist import decode_attn
+        if ring is not None:
+            return decode_attn.ring_attention_local(
+                q, k, v, skv=ring[0], causal=causal, window=window,
+                q_offset=q_offset)
         return decode_attn.seq_sharded_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q_offset is not None or cfg.attn_impl in ("torch", "seq_shard"):
@@ -248,25 +338,46 @@ def attention_call(cfg: ModelConfig, q, k, v, *, causal, window,
                           impl=cfg.attn_impl)
 
 
-def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
-               positions=None, cross: bool = False, memory=None, cache=None,
-               pos=None):
-    """Self- or cross-attention block (pre-norm, residual).
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """Where a rank's shard of an attention block sits in the global one
+    (all zero / None on one device): ``row0`` the global position of its
+    first query row, ``kv`` the slice of the K/V heads its query heads
+    read (None: all it holds), ``chunk`` (the cache's global length, this
+    rank's offset in it) for a cache stored sharded by sequence."""
+    row0: int = 0
+    kv: Optional[slice] = None
+    chunk: Optional[tuple[int, int]] = None
 
-    Self-attention: cache dict(k=(B,Hkv,Smax,hd), v=...), written at
-    ``pos`` into a new tensor (the caller's cache is left as it was, as
-    the reference's functional update leaves it).  Cross-attention (no
-    rope, not causal): with ``memory`` the K/V are projected from it (and
-    stored to the cache when one is given — prefill); without ``memory``
-    the cached K/V are used (decode).  Returns (x, new_cache_or_None)."""
-    s = x.shape[1]
-    y = apply_norm(cfg, p["ln"], x)
-    q = _project_q(p, y)
+
+def _write_cache(cache, k, v, pos: int, off: int = 0):
+    """The cache with k/v (B, Hkv, s, hd) written at rows ``pos``..``pos +
+    s``, into new tensors (the caller's cache is left as it was, as the
+    reference's functional update leaves it).  ``off``: the global row
+    of the cache's first row (a rank's chunk of a sequence-sharded
+    cache), which takes only the rows that fall in it."""
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    s, n = k.shape[2], ck.shape[2]
+    lo, hi = max(pos, off), min(pos + s, off + n)
+    if lo < hi:
+        ck[:, :, lo - off:hi - off] = k[:, :, lo - pos:hi - pos].to(ck.dtype)
+        cv[:, :, lo - off:hi - off] = v[:, :, lo - pos:hi - pos].to(cv.dtype)
+    return ck, cv
+
+
+def _attention(cfg: ModelConfig, p, yq, ykv, *, causal, window, positions,
+               cross, memory, cache, pos, lay: _Layout = _Layout()):
+    """The attention block between its norm and its residual: queries
+    from ``yq``, keys and values from ``ykv`` (the same rows on one
+    device), rope, the cache write, attention and the output projection.
+    Returns (out (B, Sq, d), new_cache_or_None)."""
+    sq = yq.shape[1]
+    q = _project_q(p, yq)
     new_cache = None
     q_offset = None
     if cross:
         if memory is not None:
-            k, v = _project_kv(p, memory.to(y.dtype))
+            k, v = _project_kv(p, memory.to(yq.dtype))
             if cache is not None:
                 new_cache = {"k": k.to(cache["k"].dtype),
                              "v": v.to(cache["v"].dtype)}
@@ -278,21 +389,154 @@ def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
             new_cache = cache
         causal = False
     else:
-        k, v = _project_kv(p, y)
+        k, v = _project_kv(p, ykv)
         if positions is None:
-            positions = torch.arange(s, device=x.device)
-        q, k = rope(q, k, positions, cfg.rope_theta)
+            positions = torch.arange(ykv.shape[1], device=yq.device)
+        q_pos = None if sq == ykv.shape[1] else \
+            positions[..., lay.row0:lay.row0 + sq]
+        q, k = rope(q, k, positions, cfg.rope_theta, q_positions=q_pos)
         if cache is not None:
-            ck, cv = cache["k"].clone(), cache["v"].clone()
-            ck[:, :, pos:pos + s] = k.to(ck.dtype)
-            cv[:, :, pos:pos + s] = v.to(cv.dtype)
+            ck, cv = _write_cache(cache, k, v, pos,
+                                  lay.chunk[1] if lay.chunk else 0)
             new_cache = {"k": ck, "v": cv}
-            k, v = ck, cv
-            q_offset = pos
+            q_offset = pos + lay.row0
+            if lay.chunk is None or sq == 1:
+                k, v = ck, cv
+            elif pos != 0:
+                raise NotImplementedError(
+                    "a prompt after position 0 against a cache stored "
+                    "sharded by sequence")
+            else:
+                # a prefill from 0 attends over its own rows (all of them
+                # here; the cache's later rows are zeros it cannot see),
+                # in the cache's dtype, as read back from a whole cache
+                k, v = k.to(ck.dtype), v.to(cv.dtype)
+        elif causal and sq < k.shape[2]:
+            # a rank's query rows (``seq``): it reads every key under the
+            # mask, as the reference's one SPMD program does, so every
+            # rank does rank 0's work
+            q_offset = lay.row0
+    if lay.kv is not None:
+        k, v = k[:, lay.kv], v[:, lay.kv]
     out = attention_call(cfg, q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
-    x = x + torch.einsum("bhtk,hkd->btd", out.to(x.dtype), p["wo"])
-    return x, new_cache
+                         q_offset=q_offset,
+                         ring=lay.chunk if not cross else None)
+    return torch.einsum("bhtk,hkd->btd", out.to(yq.dtype), p["wo"]), \
+        new_cache
+
+
+def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
+               positions=None, cross: bool = False, memory=None, cache=None,
+               pos=None):
+    """Self- or cross-attention block (pre-norm, residual).
+
+    Self-attention: cache dict(k=(B,Hkv,Smax,hd), v=...), written at
+    ``pos`` into a new tensor (the caller's cache is left as it was, as
+    the reference's functional update leaves it).  Cross-attention (no
+    rope, not causal): with ``memory`` the K/V are projected from it (and
+    stored to the cache when one is given — prefill); without ``memory``
+    the cached K/V are used (decode).  On DTensors under a live mesh the
+    block between norm and residual runs on each rank's shards
+    (``_attn_sharded``).  Returns (x, new_cache_or_None)."""
+    y = apply_norm(cfg, p["ln"], x)
+    kw = dict(causal=causal, window=window, positions=positions,
+              cross=cross, memory=memory, cache=cache, pos=pos)
+    mesh = _dtensor_mesh(y)
+    if mesh is None:
+        out, new_cache = _attention(cfg, p, y, y, **kw)
+    else:
+        out, new_cache = _attn_sharded(cfg, p, y, mesh, **kw)
+    return x + out, new_cache
+
+
+def _attn_sharded(cfg: ModelConfig, p, y, mesh, **kw):
+    """``_attention`` on each rank's shards (``sharding.local_region``),
+    Megatron-style over ``model`` (m ranks):
+
+    * ``heads``: the query heads split over ``model`` where they divide
+      (the K/V heads too where those divide, else each rank computes all
+      and reads the ones its query heads share), the output projection's
+      rows with them, so the block's output is a pending sum over
+      ``model`` (the reduction the residual's layout resolves);
+    * ``ring``: decode against a cache stored sharded by sequence
+      (``attn_impl="seq_shard"``): every rank the whole (one-row)
+      projection, its own chunk of the cache, the chunks round the ring;
+    * ``seq``: where the heads do not divide, the query rows split over
+      ``model`` (each rank all K/V rows and heads, every key read under
+      the mask, so every rank does the same work);
+    * ``replicated``: neither divides (one-row decode): every rank the
+      whole block.
+    The batch splits over the batch axes throughout."""
+    from repro_torch.dist import sharding as shd
+    cache, cross = kw["cache"], kw["cross"]
+    names = mesh.axis_names
+    m = int(mesh.shape["model"]) if "model" in names else 1
+    b = shd.batch_axes(mesh)
+    hq, hkv, s = cfg.n_heads, cfg.n_kv_heads, y.shape[1]
+    c = mesh.coordinate()["model"] if m > 1 else 0
+    if m == 1:
+        mode = "replicated"
+    elif cfg.attn_impl == "seq_shard" and cache is not None and not cross:
+        mode = "ring"
+    elif hq % m == 0 and (hkv % m == 0 or m % hkv == 0):
+        mode = "heads"
+    elif s % m == 0 and s > 1:
+        mode = "seq"
+    else:
+        mode = "replicated"
+    heads = "model" if mode == "heads" else None
+    kv_split = heads if hkv % m == 0 else None
+    lay = _Layout()
+    if mode == "heads" and kv_split is None:
+        group, hq_l = hq // hkv, hq // m
+        lay = _Layout(kv=slice(c * hq_l // group,
+                               (c * hq_l + hq_l - 1) // group + 1))
+    elif mode == "seq":
+        lay = _Layout(row0=c * (s // m))
+    cache_seq = "model" if mode == "ring" else None
+    if mode == "ring":
+        total = cache["k"].shape[2]
+        lay = _Layout(chunk=(total, c * (total // m)))
+
+    def fit(spec, t):
+        return shd.fit_spec(spec, tuple(t.shape), mesh)
+
+    def tree_specs(tree, spec_of):
+        return None if tree is None else {k: spec_of(v)
+                                          for k, v in tree.items()}
+
+    w_specs = {"wq": shd.P(None, heads, None), "bq": shd.P(heads, None),
+               "wk": shd.P(None, kv_split, None),
+               "bk": shd.P(kv_split, None),
+               "wv": shd.P(None, kv_split, None),
+               "bv": shd.P(kv_split, None), "wo": shd.P(heads, None, None)}
+    pw = {k: v for k, v in p.items() if k in w_specs}
+    y_q = shd.P(b, "model" if mode == "seq" else None, None)
+    y_kv = shd.P(b, None, None)
+    c_spec = shd.P(b, kv_split, cache_seq, None)
+    inputs = [(y, fit(y_q, y)), (y, fit(y_kv, y)),
+              (kw["memory"], None if kw["memory"] is None
+               else fit(y_kv, kw["memory"]))]
+    inputs += [(pw[k], fit(w_specs[k], pw[k])) for k in sorted(pw)]
+    c_keys = sorted(cache) if cache is not None else []
+    inputs += [(cache[k], fit(c_spec, cache[k])) for k in c_keys]
+    out_spec = fit(y_q, y)
+
+    def body(yq, ykv, memory, *rest):
+        local_p = dict(zip(sorted(pw), rest[:len(pw)]))
+        local_c = dict(zip(c_keys, rest[len(pw):])) if cache is not None \
+            else None
+        out, nc = _attention(cfg, local_p, yq, ykv,
+                             **{**kw, "memory": memory, "cache": local_c},
+                             lay=lay)
+        return (out,) + tuple(nc[k] for k in c_keys) if nc else (out,)
+
+    c_specs = [fit(c_spec, cache[k]) for k in c_keys]
+    pend = ((("model",) if mode == "heads" else ()),) + ((),) * len(c_keys)
+    outs = shd.local_region(mesh, body, inputs, [out_spec] + c_specs,
+                            partial=pend)
+    new_cache = dict(zip(c_keys, outs[1:])) if cache is not None else None
+    return outs[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -336,10 +580,37 @@ def moe_block(cfg: ModelConfig, p, x):
     grouped einsums, and the outputs are gathered back and combined with
     their routing weights.  Everything stays on the device: masks are
     ``torch.where``, never boolean indexing.  Returns (x, aux), aux the
-    Switch-style load-balance loss of the first choices."""
-    e = cfg.moe
-    b, s, d = x.shape
+    Switch-style load-balance loss of the first choices.
+
+    On DTensors under a live mesh (``_moe_sharded``) the experts split
+    over ``model`` (expert parallelism: every ``model`` rank routes its
+    batch rows alike and runs its own experts, the combined outputs a
+    pending sum over ``model``) and the shared expert is Megatron-split;
+    routing, capacity and the auxiliary loss are each batch shard's."""
     y = apply_norm(cfg, p["ln"], x)
+    mesh = _dtensor_mesh(y)
+    if mesh is not None:
+        routed, shared, aux = _moe_sharded(cfg, p, y, mesh)
+        out = x + routed.to(x.dtype)
+        return (out if shared is None else out + shared.to(x.dtype)), aux
+    e = cfg.moe
+    routed, aux = _moe_routed(cfg, p, y)
+    out = x + routed.to(x.dtype)
+    if e.shared_expert:
+        out = out + _shared_expert(p["shared"], y).to(x.dtype)
+    return out, aux
+
+
+def _shared_expert(sp, y):
+    return (F.silu(y @ sp["wg"]) * (y @ sp["wu"])) @ sp["wd"]
+
+
+def _moe_routed(cfg: ModelConfig, p, y, e0: int = 0):
+    """The routed experts' combined output (B, S, d) and the auxiliary
+    loss, over the experts ``e0`` .. ``e0 + p["wg"].shape[0]`` (all of
+    them on one device): choices of other experts add nothing."""
+    e = cfg.moe
+    b, s, d = y.shape
     t = b * s
     yt = y.reshape(t, d)
 
@@ -354,12 +625,15 @@ def moe_block(cfg: ModelConfig, p, x):
     onehot = F.one_hot(flat_e, e.n_experts)
     slot = torch.gather(torch.cumsum(onehot, dim=0), 1,
                         flat_e[:, None])[:, 0] - 1             # (T*k,)
-    keep = slot < cap
-    slot_c = torch.where(keep, slot, cap - 1)
+    n_local = p["wg"].shape[0]
+    mine = (flat_e >= e0) & (flat_e < e0 + n_local)
+    keep = (slot < cap) & mine
+    slot_c = torch.where(slot < cap, slot, cap - 1)
+    local_e = torch.where(mine, flat_e - e0, 0)
 
-    tok_idx = torch.arange(t, device=x.device).repeat_interleave(e.top_k)
-    buf = torch.zeros((e.n_experts, cap, d), dtype=y.dtype, device=x.device)
-    buf.index_put_((flat_e, slot_c),
+    tok_idx = torch.arange(t, device=y.device).repeat_interleave(e.top_k)
+    buf = torch.zeros((n_local, cap, d), dtype=y.dtype, device=y.device)
+    buf.index_put_((local_e, slot_c),
                    torch.where(keep[:, None], yt[tok_idx], 0),
                    accumulate=True)
 
@@ -367,24 +641,51 @@ def moe_block(cfg: ModelConfig, p, x):
     h = F.silu(h) * torch.einsum("ecd,edf->ecf", buf, p["wu"])
     out_buf = torch.einsum("ecf,efd->ecd", h, p["wd"])         # (E, C, d)
 
-    gathered = out_buf[flat_e, slot_c]                         # (T*k, d)
+    gathered = out_buf[local_e, slot_c]                        # (T*k, d)
     gathered = torch.where(keep[:, None], gathered, 0)
     wflat = weights.reshape(-1)
-    combined = torch.zeros((t, d), dtype=gathered.dtype, device=x.device)
+    combined = torch.zeros((t, d), dtype=gathered.dtype, device=y.device)
     combined.index_add_(0, tok_idx,
                         gathered * wflat[:, None].to(gathered.dtype))
-
-    out = x + combined.reshape(b, s, d).to(x.dtype)
-    if e.shared_expert:
-        sp = p["shared"]
-        hs = F.silu(y @ sp["wg"]) * (y @ sp["wu"])
-        out = out + (hs @ sp["wd"]).to(x.dtype)
 
     # load-balance auxiliary loss (Switch-style), first choices only
     me = torch.mean(F.one_hot(experts[:, 0], e.n_experts).float(), dim=0)
     ce = torch.mean(gates, dim=0)
     aux = e.n_experts * torch.sum(me * ce)
-    return out, aux
+    return combined.reshape(b, s, d), aux
+
+
+def _moe_sharded(cfg: ModelConfig, p, y, mesh):
+    """``moe_block``'s parts on each rank's shards (see its docstring):
+    returns (routed output, shared expert's output or None, aux)."""
+    from repro_torch.dist import sharding as shd
+    e = cfg.moe
+    m = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
+    b = shd.batch_axes(mesh)
+    em = "model" if m > 1 and e.n_experts % m == 0 else None
+    e0 = mesh.coordinate()["model"] * (e.n_experts // m) if em else 0
+
+    def fit(spec, t):
+        return shd.fit_spec(spec, tuple(t.shape), mesh)
+    rows = fit(shd.P(b, None, None), y)
+    w = shd.P(em, None, None)
+    routed, aux = shd.local_region(
+        mesh, lambda yy, r, wg, wu, wd: _moe_routed(
+            cfg, {"router": r, "wg": wg, "wu": wu, "wd": wd}, yy, e0),
+        [(y, rows), (p["router"], shd.P(None, None)), (p["wg"], w),
+         (p["wu"], w), (p["wd"], w)],
+        [rows, shd.P()], partial=((("model",) if em else ()), ()))
+    if not e.shared_expert:
+        return routed, None, aux
+    sp = p["shared"]
+    fm = "model" if m > 1 and sp["wg"].shape[1] % m == 0 else None
+    (shared,) = shd.local_region(
+        mesh, lambda yy, wg, wu, wd: (_shared_expert(
+            {"wg": wg, "wu": wu, "wd": wd}, yy),),
+        [(y, rows), (sp["wg"], shd.P(None, fm)), (sp["wu"], shd.P(None, fm)),
+         (sp["wd"], shd.P(fm, None))],
+        [rows], partial=((("model",) if fm else ()),))
+    return routed, shared, aux
 
 
 # ---------------------------------------------------------------------------
@@ -430,21 +731,88 @@ def _causal_conv(x, w, state=None):
     return y.to(torch.promote_types(xp.dtype, w.dtype)), new_state
 
 
-def mamba_block(cfg: ModelConfig, p, x, *, cache=None):
+def mamba_block(cfg: ModelConfig, p, x, *, cache=None, fresh=False):
     """Mamba-2 block. cache: dict(conv_x/conv_b/conv_c states, ssm state
     (B, H, N, P)).  Without a cache the chunked SSD runs through
     ``ops.ssd`` (the kernel under ``attn_impl="cuda"``); with one, the
-    per-token recurrence.  Returns (x, new_cache_or_None)."""
-    s_cfg = cfg.ssm
-    b, s, d = x.shape
-    h, pdim, n = cfg.n_ssm_heads, s_cfg.head_dim, s_cfg.d_state
-    g = s_cfg.n_groups
+    per-token recurrence, or, ``fresh`` (a prefill from position 0), the
+    scan and the final state in closed form.  On DTensors under a live
+    mesh the input projections and the mixer (the convolutions, the scan
+    and the skip) run on each rank's shards, the heads and ``d_inner``
+    split over ``model`` where they divide (``_mamba_sharded``), and so
+    does the output projection.  Returns (x, new_cache_or_None)."""
     y = apply_norm(cfg, p["ln"], x)
-    z = y @ p["wz"]
-    xs = y @ p["wx"]
-    bs = y @ p["wb"]
-    cs = y @ p["wc"]
+    mesh = _dtensor_mesh(y)
+    if mesh is None:
+        z, xs, bs, cs, dt = _mamba_in(p, y)
+        yflat, new_cache = _mamba_mixer(cfg, p, xs, bs, cs, dt, cache,
+                                        fresh)
+    else:
+        z, yflat, new_cache = _mamba_sharded(cfg, p, y, cache, mesh, fresh)
+    # gated RMSNorm (Mamba-2), in float32
+    inv = torch.rsqrt(_mean_last(yflat * yflat) + 1e-6)
+    yflat = yflat * inv * p["gate_norm"].float()
+    yflat = yflat * F.silu(z.float())
+    if mesh is None:
+        return x + (yflat @ p["wo"].float()).to(x.dtype), new_cache
+    return x + _mamba_out_sharded(cfg, p, yflat, mesh).to(x.dtype), \
+        new_cache
+
+
+def _mamba_in(p, y):
+    """The input projections: z, x, B, C and dt = softplus(. + bias)."""
     dt = F.softplus((y @ p["wdt"]).float() + p["dt_bias"].float())  # (B,S,H)
+    return y @ p["wz"], y @ p["wx"], y @ p["wb"], y @ p["wc"], dt
+
+
+def _mamba_heads(cfg: ModelConfig, mesh):
+    """``model`` when the SSM heads (and ``d_inner`` with them) split over
+    it: they divide, and there is one group of B and C (a rank's heads
+    read their own group; every configuration of the zoo has one)."""
+    m = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
+    return "model" if m > 1 and cfg.n_ssm_heads % m == 0 \
+        and cfg.ssm.n_groups == 1 else None
+
+
+def _mamba_out_sharded(cfg: ModelConfig, p, yflat, mesh):
+    """The output projection on each rank's shards: ``d_inner``'s rows of
+    ``wo`` as split with the heads, the product a pending sum."""
+    from repro_torch.dist import sharding as shd
+    b = shd.batch_axes(mesh)
+    hm = _mamba_heads(cfg, mesh)
+    bsz, s, _ = yflat.shape
+    inner = shd.fit_spec(shd.P(b, None, hm), tuple(yflat.shape), mesh)
+    rows = shd.fit_spec(shd.P(b, None, None), (bsz, s, cfg.d_model), mesh)
+    (out,) = shd.local_region(
+        mesh, lambda yf, wo: (yf @ wo.float(),),
+        [(yflat, inner), (p["wo"], shd.P(hm, None))], [rows],
+        partial=((("model",) if hm else ()),))
+    return out
+
+
+def _final_state(xh, dth, a, bh):
+    """The SSM state after a sequence from a zero state: sum over t of
+    exp(a * (dt_{t+1} + ... + dt_S)) dt_t B_t x_t^T (the recurrence
+    unrolled), (B, H, N, P) float32."""
+    cum = torch.cumsum(dth * a[None, :, None], dim=-1)         # (B,H,S)
+    w = torch.exp(cum[..., -1:] - cum) * dth
+    bhh = bh.repeat_interleave(xh.shape[1] // bh.shape[1], dim=1).float()
+    return (w[..., None] * bhh).transpose(-1, -2) @ xh.float()
+
+
+def _mamba_mixer(cfg: ModelConfig, p, xs, bs, cs, dt, cache,
+                 fresh: bool = False):
+    """The causal convolutions, the SSD scan (or the recurrence against
+    the cache) and the skip: (B, S, H * P) float32 and the new cache.
+    ``fresh``: the cache holds a zero state (a prefill from position 0),
+    so the outputs come from the chunked scan (its plain version: a
+    prefill takes the plain routes, as in the reference) and the new
+    state in closed form (``_final_state``), not from a step per
+    token."""
+    s_cfg = cfg.ssm
+    b, s, _ = xs.shape
+    h, pdim, n = dt.shape[-1], s_cfg.head_dim, s_cfg.d_state
+    g = s_cfg.n_groups
     new_cache = None
     if cache is None:
         xs, _ = _causal_conv(xs, p["conv_x"])
@@ -462,9 +830,13 @@ def mamba_block(cfg: ModelConfig, p, x, *, cache=None):
     dth = dt.transpose(1, 2)                                    # (B,H,S)
     a = -torch.exp(p["a_log"].float())                          # (H,)
 
-    if cache is None:
+    if cache is None or fresh:
+        # a prefill (with a cache) keeps the reference's plain route
         yh = kops.ssd(xh, dth, a, bh, ch, chunk=s_cfg.chunk,
-                      impl=cfg.attn_impl)
+                      impl=cfg.attn_impl if cache is None else "torch")
+        if cache is not None:
+            new_cache = {"conv_x": cx, "conv_b": cb, "conv_c": cc,
+                         "ssm": _final_state(xh, dth, a, bh)}
     else:
         # single-step (or short-step) recurrence against the cached state
         state = cache["ssm"]                                    # (B,H,N,P)
@@ -483,10 +855,45 @@ def mamba_block(cfg: ModelConfig, p, x, *, cache=None):
         new_cache = {"conv_x": cx, "conv_b": cb, "conv_c": cc, "ssm": state}
 
     yh = yh.float() + p["d_skip"].float()[None, :, None, None] * xh.float()
-    yflat = yh.transpose(1, 2).reshape(b, s, h * pdim)
-    # gated RMSNorm (Mamba-2), in float32
-    inv = torch.rsqrt(torch.mean(yflat * yflat, -1, keepdim=True) + 1e-6)
-    yflat = yflat * inv * p["gate_norm"].float()
-    yflat = yflat * F.silu(z.float())
-    x = x + (yflat @ p["wo"].float()).to(x.dtype)
-    return x, new_cache
+    return yh.transpose(1, 2).reshape(b, s, h * pdim), new_cache
+
+
+def _mamba_sharded(cfg: ModelConfig, p, y, cache, mesh,
+                   fresh: bool = False):
+    """``_mamba_in`` and ``_mamba_mixer`` on each rank's shards: batch
+    over the batch axes, the heads (and ``d_inner`` with them) over
+    ``model`` where they divide; B and C (the groups) whole on every
+    rank.  Returns (z, the mixer's output, the new cache or None)."""
+    from repro_torch.dist import sharding as shd
+    b = shd.batch_axes(mesh)
+    hm = _mamba_heads(cfg, mesh)
+
+    def fit(spec, shape):
+        return shd.fit_spec(spec, tuple(shape), mesh)
+    rows, inner = shd.P(b, None, None), shd.P(b, None, hm)
+    col, whole, split = shd.P(None, hm), shd.P(None, None), shd.P(hm)
+    specs = {"wz": col, "wx": col, "wb": whole, "wc": whole, "wdt": col,
+             "dt_bias": split, "conv_x": shd.P(hm, None),
+             "conv_b": whole, "conv_c": whole, "a_log": split,
+             "d_skip": split}
+    c_specs = {"conv_x": inner, "conv_b": rows, "conv_c": rows,
+               "ssm": shd.P(b, hm, None, None)}
+    keys = list(specs)
+    c_keys = sorted(cache) if cache is not None else []
+    inputs = [(y, fit(rows, y.shape))]
+    inputs += [(p[k], fit(specs[k], p[k].shape)) for k in keys]
+    inputs += [(cache[k], fit(c_specs[k], cache[k].shape)) for k in c_keys]
+
+    def body(yy, *rest):
+        lp = dict(zip(keys, rest[:len(keys)]))
+        lc = dict(zip(c_keys, rest[len(keys):])) if c_keys else None
+        z, xs, bs, cs, dt = _mamba_in(lp, yy)
+        yflat, nc = _mamba_mixer(cfg, lp, xs, bs, cs, dt, lc, fresh)
+        return (z, yflat) + tuple(nc[k] for k in c_keys)
+
+    inner_out = fit(inner, (*y.shape[:2], cfg.d_inner))
+    outs = shd.local_region(
+        mesh, body, inputs, [inner_out, inner_out]
+        + [fit(c_specs[k], cache[k].shape) for k in c_keys])
+    return outs[0], outs[1], \
+        (dict(zip(c_keys, outs[2:])) if c_keys else None)

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
@@ -41,12 +42,44 @@ def cast_for_compute(tree):
         tree)
 
 
-def _check_device(cfg: ModelConfig, device) -> None:
+def params_for_compute(cfg: ModelConfig, tree):
+    """``cast_for_compute`` of a parameter tree at its use.  On DTensors
+    under a live mesh (the dry run's global program) each leaf is first
+    gathered over the batch axes (the FSDP gather,
+    ``sharding.gather_batch_axes``): in float32 and then cast, or, with
+    ``cfg.fsdp_gather_dtype == "bf16"``, cast first so that the gather
+    moves half the bytes (the reference casts its stage's parameters
+    before the scan for that).  On plain tensors only the cast."""
+    mesh = L._dtensor_mesh(L.tree_leaves(tree)[0]) if tree else None
+    if mesh is None:
+        return cast_for_compute(tree)
+    from repro_torch.dist import sharding
+    if cfg.fsdp_gather_dtype == "bf16":
+        tree = cast_for_compute(tree)
+    tree = L.tree_map(lambda w: sharding.gather_batch_axes(w, mesh), tree)
+    return cast_for_compute(tree)
+
+
+def gathered(w):
+    """One parameter as it is used: gathered over the batch axes when it
+    is a DTensor under a live mesh (see ``params_for_compute``)."""
+    mesh = L._dtensor_mesh(w)
+    if mesh is None:
+        return w
+    from repro_torch.dist import sharding
+    return sharding.gather_batch_axes(w, mesh)
+
+
+def _check_device(cfg: ModelConfig, where) -> None:
     """``attn_impl="cuda"`` runs the hand-written kernels: it takes CUDA
     tensors and raises on any other device, never running the plain route
-    in their place."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    in their place.  ``where``: a device, or a tensor on it; a fake tensor
+    (the dry run's) names a device that need not exist."""
+    simulated = isinstance(where, torch.Tensor) and _is_fake(where)
+    device = torch.device(where.device if isinstance(where, torch.Tensor)
+                          else where)
+    if device.type == "cuda" and not simulated \
+            and not torch.cuda.is_available():
         raise RuntimeError(f"{cfg.name}: device {device} asks for a CUDA "
                            "device and none is available")
     if cfg.attn_impl == "cuda" and device.type != "cuda":
@@ -54,6 +87,12 @@ def _check_device(cfg: ModelConfig, device) -> None:
             f"{cfg.name}: attn_impl='cuda' runs the CUDA kernels and needs "
             f"its tensors on a CUDA device, got {device}; use "
             "attn_impl='torch' for the plain route")
+
+
+def _is_fake(t) -> bool:
+    """Whether ``t`` (or a DTensor's local shard) is a fake tensor."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +181,9 @@ def _block_forward(cfg: ModelConfig, kind: str, p, x, *, positions,
             x = L.apply_mlp(cfg, p["mlp"], x)
     elif kind in ("mamba", "hybrid"):
         c_m = cache.get("mamba") if cache else None
-        x, nc = L.mamba_block(cfg, p["mamba"], x, cache=c_m)
+        x, nc = L.mamba_block(cfg, p["mamba"], x, cache=c_m,
+                              fresh=c_m is not None and pos == 0
+                              and x.shape[1] > 1)
         if nc is not None:
             new_cache["mamba"] = nc
         if kind == "hybrid":
@@ -176,7 +217,8 @@ def _run_stage(cfg: ModelConfig, unit: tuple[str, ...], stage_params, x, *,
     new_cache = [] if cache is not None else None
 
     def unit_fn(x, p_unit, c_unit):
-        p_unit = cast_for_compute(p_unit)
+        x = L.constrain_btd(cfg, x)
+        p_unit = params_for_compute(cfg, p_unit)
         a_unit = torch.zeros((), dtype=torch.float32, device=x.device)
         new_c = {}
         for i, kind in enumerate(unit):
@@ -208,11 +250,12 @@ def _encode(cfg: ModelConfig, params: Params, frames):
     the compute dtype: frames plus learned positions, then a bidirectional
     attention stack with rope over the frame positions."""
     enc = params["encoder"]
-    x = frames + enc["pos"][None, :frames.shape[1], :].to(frames.dtype)
+    x = frames + gathered(enc["pos"])[None, :frames.shape[1], :].to(
+        frames.dtype)
     positions = torch.arange(frames.shape[1], device=frames.device)
 
     def unit_fn(x, p_unit):
-        p = cast_for_compute(p_unit)["0"]
+        p = params_for_compute(cfg, p_unit)["0"]
         x, _ = L.attn_block(cfg, p["attn"], x, causal=False,
                             positions=positions)
         return L.apply_mlp(cfg, p["mlp"], x)
@@ -235,17 +278,18 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
     reference's input specs give them).  caches/pos: decode mode (caches
     mirror the stages' structure).  Returns (hidden (B,S,d), aux_loss,
     new_caches, memory)."""
-    _check_device(cfg, tokens.device)
+    _check_device(cfg, tokens)
     if frames is not None:
         memory = _encode(cfg, params, frames)
     if img_embeds is not None:
         memory = img_embeds
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    x = F.embedding(tokens, gathered(params["embed"])).to(COMPUTE_DTYPE)
+    x = L.constrain_btd(cfg, x)
     if positions is None:
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
     shared = params.get("shared_attn")
     if shared is not None:
-        shared = cast_for_compute(shared)
+        shared = params_for_compute(cfg, shared)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
     for si, (unit, _reps) in enumerate(cfg.stages):
@@ -256,15 +300,16 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
+    x = L.constrain_btd(cfg, x)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return x, aux_total, new_caches, memory
 
 
 def unembed(cfg: ModelConfig, params: Params, hidden):
     if cfg.tie_embeddings:
-        logits = hidden @ params["embed"].to(hidden.dtype).T
+        logits = hidden @ gathered(params["embed"]).to(hidden.dtype).T
     else:
-        logits = hidden @ params["unembed"].to(hidden.dtype)
+        logits = hidden @ gathered(params["unembed"]).to(hidden.dtype)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -291,6 +336,25 @@ def _chunk_stats(cfg: ModelConfig, hidden, wc, labels, off: int):
     return m_c, s_c, gold_c
 
 
+def _chunk_stats_sharded(cfg: ModelConfig, hidden, wc, labels, off: int):
+    """``_chunk_stats`` on each rank's shards under a live mesh: the
+    positions split over the batch axes and ``model`` (the sequence), the
+    chunk's unembedding whole on every rank."""
+    from repro_torch.dist import context, sharding
+    mesh = L._dtensor_mesh(hidden)
+    b = sharding.batch_axes(mesh)
+    model = "model" if "model" in mesh.axis_names else None
+
+    def fit(spec, t):
+        return sharding.fit_spec(spec, tuple(t.shape), mesh)
+    rows = fit(sharding.P(b, model, None), hidden)
+    out = sharding.P(*rows[:2])
+    return sharding.local_region(
+        mesh, lambda h, w, y: _chunk_stats(cfg, h, w, y, off),
+        [(hidden, rows), (wc, sharding.P(None, None)), (labels, out)],
+        [out, out, out])
+
+
 def loss_fn(cfg: ModelConfig, params: Params, batch) -> tuple:
     """Cross entropy over a vocab-chunked unembedding, combined with a
     running logsumexp: never materializes (B, S, V).  When a gradient is
@@ -305,7 +369,16 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> tuple:
     b, s, _ = hidden.shape
     v = cfg.vocab
     vc = min(v, max(16384, -(-v // 16)))
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w = gathered(params["embed"]).T if cfg.tie_embeddings \
+        else gathered(params["unembed"])
+    mesh = L._dtensor_mesh(w)
+    if mesh is not None:
+        # one gather of the vocab split, in the compute dtype, that every
+        # chunk slices (a slice of a vocab-split DTensor would gather it
+        # whole, once per chunk, each kept for the backward)
+        from repro_torch.dist import sharding
+        w = sharding.constrain(w.to(hidden.dtype), sharding.P(None, None),
+                               mesh)
     dev = hidden.device
     m_run = torch.full((b, s), float("-inf"), dtype=torch.float32, device=dev)
     s_run = torch.zeros((b, s), dtype=torch.float32, device=dev)
@@ -316,9 +389,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> tuple:
     while off < v:
         size = min(vc, v - off)
         args = (cfg, hidden, w[:, off:off + size], labels, off)
-        m_c, s_c, gold_c = (checkpoint(_chunk_stats, *args,
-                                       use_reentrant=False)
-                            if grad else _chunk_stats(*args))
+        stats = _chunk_stats_sharded if L._dtensor_mesh(hidden) is not None \
+            else _chunk_stats
+        m_c, s_c, gold_c = (checkpoint(stats, *args, use_reentrant=False)
+                            if grad else stats(*args))
         gold = gold + gold_c
         m_new = torch.maximum(m_run, m_c)
         s_run = s_run * torch.exp(m_run - m_new) + s_c * torch.exp(m_c - m_new)
@@ -382,6 +456,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for unit, reps in cfg.stages]
 
 
+def _placed_cache(cfg: ModelConfig, mesh, batch: int, max_seq: int,
+                  device):
+    """Fresh caches as DTensors on ``cache_specs`` (sequence-sharded under
+    ``attn_impl="seq_shard"``), each rank holding zeros of its shard: the
+    reference's cache layout under its global program."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import sharding
+    specs = sharding.cache_specs(cfg, mesh, batch, max_seq,
+                                 seq_shard=cfg.attn_impl == "seq_shard")
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, sp) for v, sp in zip(tree, spec)]
+        from repro_torch.launch.steps import local_shape
+        local = torch.zeros(local_shape(tuple(tree.shape), spec, mesh),
+                            dtype=tree.dtype, device=device)
+        return DTensor.from_local(
+            local, mesh.device_mesh,
+            sharding.NamedSharding(mesh, spec).placements, run_check=False,
+            shape=tree.shape, stride=tree.stride())
+
+    return walk(init_cache(cfg, batch, max_seq, device="meta"), specs)
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Params, tokens, max_seq: int, *,
             frames=None, img_embeds=None):
@@ -389,7 +489,11 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_seq: int, *,
     position 0 (and the cross caches from the encoder's or the image
     memory).  Returns (last-token logits, caches, memory)."""
     b, _ = tokens.shape
-    caches = init_cache(cfg, b, max_seq, device=tokens.device)
+    mesh = L._dtensor_mesh(tokens)
+    if mesh is None:
+        caches = init_cache(cfg, b, max_seq, device=tokens.device)
+    else:
+        caches = _placed_cache(cfg, mesh, b, max_seq, tokens.device)
     hidden, _, caches, memory = forward(
         cfg, params, tokens, frames=frames, img_embeds=img_embeds,
         caches=caches, pos=0)

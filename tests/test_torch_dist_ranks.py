@@ -36,7 +36,16 @@ Checks, with the reference's own bounds (``tests/test_dist.py``):
   device at the same mesh coordinate, bit for bit;
 * a ``seq_shard`` smoke model's ``decode_step`` under the (2, 4) mesh
   equals the one without a mesh (float32 compute): logits within 1e-5,
-  the same greedy tokens.
+  the same greedy tokens; and with its caches stored sharded by sequence
+  (DTensors on ``cache_specs(seq_shard=True)``: each rank a 16-row chunk
+  on a ring of 4, the new row written on its owning rank) it equals the
+  whole-cache run within 1e-4 (its sums split over ranks), the same
+  greedy tokens;
+* mamba2-1.3b's and zamba2-1.2b's smoke models prefilled with DTensor
+  parameters and prompt on the (2, 4) mesh (the Mamba blocks on each
+  rank's shards: batch over ``data``, heads over ``model``) against the
+  same prefill without DTensors, float32 compute: logits within 1e-4
+  (sums split over ranks), the new SSM states within 1e-4.
 
 Run alone: ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_dist_ranks.py`` (about 30 s, most of it the 8 ranks'
@@ -318,6 +327,103 @@ def _decode(mesh) -> dict:
                                              runs["none"][0]))}
 
 
+def _decode_sharded(mesh) -> dict:
+    """``_decode``'s model served with its caches stored sharded by
+    sequence over ``model`` (a ring of 4): parameters and prompt as
+    DTensors, so prefill places the caches on ``cache_specs(seq_shard=
+    True)`` and each decode step writes the new row on its owning rank
+    and runs the ring on the local chunks; held to the whole-cache run
+    under the same mesh."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.dist import context
+    from repro_torch.models import convert, smoke_config
+    from repro_torch.models import model as M
+    cfg = smoke_config(configs.get("h2o-danube-1.8b"), attn_impl="seq_shard",
+                       act_shard="none")
+    params = convert.from_reference(cfg, convert.init_numpy(cfg, 5),
+                                    device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 40)))
+    dm = mesh.device_mesh
+    compute = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    runs, chunks = {}, []
+    try:
+        for name in ("whole", "sharded"):
+            if name == "sharded":
+                p = M.L.tree_map(lambda t: distribute_tensor(
+                    t, dm, [Replicate(), Replicate()]), params)
+                tok = distribute_tensor(prompt, dm, [Shard(0), Replicate()])
+            else:
+                p, tok = params, prompt
+            with context.use_mesh(mesh), implicit_replication():
+                log, c, _ = M.prefill(cfg, p, tok, 64)
+                pos, toks, steps = prompt.shape[1], [], []
+                for _ in range(3):
+                    nxt = torch.argmax(log[:, -1], -1)[:, None]
+                    toks.append(nxt)
+                    log, c = M.decode_step(cfg, p, c, nxt, pos)
+                    steps.append(log)
+                    pos += 1
+                if name == "sharded":
+                    k = c[0][0]["0"]["self"]["k"]
+                    chunks = [list(k.shape), list(k.to_local().shape)]
+                    toks = [t.full_tensor() for t in toks]
+                    steps = [t.full_tensor() for t in steps]
+            runs[name] = (torch.cat(toks, 1), torch.stack(steps))
+    finally:
+        M.COMPUTE_DTYPE = compute
+    return {"logit_err": float((runs["sharded"][1] - runs["whole"][1])
+                               .abs().max()),
+            "logit_scale": float(runs["whole"][1].abs().max()),
+            "tokens_equal": bool(torch.equal(runs["sharded"][0],
+                                             runs["whole"][0])),
+            "cache_shapes": chunks}
+
+
+def _mamba_sharded(mesh) -> dict:
+    """The Mamba blocks on each rank's shards (``layers._mamba_sharded``)
+    against the plain blocks: one prefill each of mamba2-1.3b's and
+    zamba2-1.2b's smoke models, with and without DTensors."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.dist import context
+    from repro_torch.models import convert, smoke_config
+    from repro_torch.models import model as M
+    compute = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    out = {}
+    try:
+        for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+            cfg = smoke_config(configs.get(arch), attn_impl="torch",
+                               act_shard="none")
+            params = convert.from_reference(cfg, convert.init_numpy(cfg, 7),
+                                            device="cpu")
+            prompt = torch.from_numpy(np.random.default_rng(8).integers(
+                0, cfg.vocab, (2, 24)))
+            log, c, _ = M.prefill(cfg, params, prompt, 32)
+            dm = mesh.device_mesh
+            p = M.L.tree_map(lambda t: distribute_tensor(
+                t, dm, [Replicate(), Replicate()]), params)
+            tok = distribute_tensor(prompt, dm, [Shard(0), Replicate()])
+            with context.use_mesh(mesh), implicit_replication():
+                dlog, dc, _ = M.prefill(cfg, p, tok, 32)
+                dlog = dlog.full_tensor()
+                i = next(k for k in c[0][0] if "mamba" in c[0][0][k])
+                state = dc[0][0][i]["mamba"]["ssm"].full_tensor()
+            out[arch] = {
+                "logit_err": float((dlog - log).abs().max()),
+                "logit_scale": float(log.abs().max()),
+                "state_err": float((state - c[0][0][i]["mamba"]["ssm"])
+                                   .abs().max())}
+    finally:
+        M.COMPUTE_DTYPE = compute
+    return out
+
+
 def _rank(rank: int, init: str, tmp: str, out_path: str) -> None:
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_mod
@@ -341,7 +447,9 @@ def _rank(rank: int, init: str, tmp: str, out_path: str) -> None:
         "grads": _grads(ref, pd),
         "attention": _attention(ref, dm),
         "placements": _placements(ref, pdm, os.path.join(tmp, "ckpt")),
-        "decode": _decode(dm)}
+        "decode": _decode(dm),
+        "decode_sharded": _decode_sharded(dm),
+        "mamba_sharded": _mamba_sharded(dm)}
     reports = [None] * WORLD
     dist.all_gather_object(reports, report)
     if rank == 0:
@@ -467,3 +575,31 @@ def test_seq_shard_decode_under_mesh_equals_no_mesh(reports):
         assert d["window"] == 32
         assert d["logit_err"] < 1e-5, d
         assert d["tokens_equal"], d
+
+
+def test_seq_shard_decode_with_sharded_cache_equals_whole_cache(reports):
+    """The cache stored sharded by sequence on a ring of 4 (each rank 16
+    of its 64 rows, batch split over ``data``) decodes as the whole cache
+    does.  Limit 1e-4 on logits of about 0.6: the sharded run also splits
+    the MLP and the norms over ``model`` (DTensor), so its float32 sums
+    run in another order, and a difference of one float32 ulp can flip
+    the bfloat16 rounding of a cache entry (2**-8 of it); the whole-cache
+    run against no mesh computes the same sums in the same order (1e-5
+    above)."""
+    for r in reports:
+        d = r["decode_sharded"]
+        assert d["cache_shapes"] == [[2, 2, 64, 16], [1, 2, 16, 16]], d
+        assert d["logit_err"] < 1e-4, d
+        assert d["tokens_equal"], d
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_mamba_blocks_on_shards_equal_plain_blocks(reports, arch):
+    """The Mamba blocks on each rank's shards (input projections and
+    mixer in one local region, heads over ``model``) prefill as the plain
+    blocks do.  Limit 1e-4: the shards' float32 sums (the norms, the
+    output projection's pending sum) run in another order."""
+    for r in reports:
+        d = r["mamba_sharded"][arch]
+        assert d["logit_err"] < 1e-4, d
+        assert d["state_err"] < 1e-4, d
