@@ -129,8 +129,8 @@ exits non-zero.
    new tokens each, through ``prefill(frames= / img_embeds=)`` and
    ``decode_step``; the cross layers launch the kernel at prefill and at
    every decode step; the first decode step held to the plain route.
-19. Training at full width: mamba2-1.3b (12 of its 48 layers, remat, the
-   plain route) through ``FaultTolerantTrainer`` + ``CheckpointManager`` +
+19. Training at full width: mamba2-1.3b (6 of its 48 layers, remat, the
+   plain route; phase 21(b) trains it at full depth) through ``FaultTolerantTrainer`` + ``CheckpointManager`` +
    AdamW, 4 x 2 048 tokens from ``TokenPipeline`` for 6 steps, a
    checkpoint every 2 and one injected failure at step 3: it resumes at
    step 2 with the pipeline's cursor restored, the restored state equals
@@ -141,7 +141,8 @@ exits non-zero.
    destroys it at its end): a one-rank NCCL process group
    (``tcp://localhost``, any free port) and a (1, 1, 1) ``("pod", "data",
    "model")`` mesh on the card; ``make_dp_grad_fn`` on h2o-danube-1.8b at
-   full width and depth (the plain route with remat, 8 x 512 tokens)
+   full width, 12 of its 24 layers (the plain route with remat, 8 x 512
+   tokens; ``launch/multicard.py`` takes them at full depth on four cards)
    under ``flat``,
    ``hier`` and ``hier`` + int8, held to the no-mesh value and gradient
    (``flat`` and ``hier`` bit for bit, int8 within half a step per
@@ -156,16 +157,17 @@ exits non-zero.
    phase 20).  (a) Fake dry runs at full size on fake CUDA tensors
    (``dryrun.run_cell``, no memory allocated): qwen2-7b ``decode_32k``
    and h2o-danube-1.8b ``long_500k`` on the single-pod (16, 16) mesh,
-   mamba2-1.3b ``prefill_32k`` and whisper-small ``train_4k`` on the
-   multi-pod (2, 16, 16) mesh (mamba2 on the kernel route; a prefill
-   takes the plain routes, as the reference's does, so the ``ssd_scan``
-   custom op is not reached there): memory, FLOPs, collectives by kind,
-   the data-sheet roofline terms (predictions) and the fake run's
-   seconds.  (b) One-card
+   mamba2-1.3b ``prefill_32k`` on the multi-pod (2, 16, 16) mesh (on
+   the kernel route; a prefill takes the plain routes, as the
+   reference's does, so the ``ssd_scan`` custom op is not reached
+   there): memory, FLOPs, collectives by kind, the data-sheet roofline
+   terms (predictions) and the fake run's seconds.  (b) One-card
    real runs: h2o-danube-1.8b ``prefill_32k`` at batch 1 of 32, qwen2-7b
    ``decode_32k`` at batch 8 of 128, h2o-danube-1.8b ``long_500k`` at
-   its own batch of 1 and whisper-small ``decode_32k`` at batch 8 of 128,
-   every layer at full width, each once as a fake run
+   its own batch of 1, whisper-small ``decode_32k`` at batch 8 of 128
+   and mamba2-1.3b ``train_4k`` (remat, AdamW in place) at batch
+   ``TRAIN_CELL_BATCH`` of 256, every layer at full width, each once as
+   a fake run
    on a one-rank fake mesh and once for real on the card (the same
    case's step on real tensors of the same local shapes,
    ``attn_override="cuda"``): the fake FLOPs equal the real run's census
@@ -173,7 +175,11 @@ exits non-zero.
    predicted temp lies within ``TEMP_BAND`` of
    ``torch.cuda.max_memory_allocated()`` above the arguments, and the
    step's measured time stands beside its roofline bound; flash launches
-   per step counted and printed.  Self-attention against a cache takes
+   per step counted and printed.  The decode and training steps own
+   their arguments, as the reference's donated ones: the caches (and
+   the parameters and moments) they return are the argument tensors
+   themselves, asserted by their storage.  Self-attention against a
+   cache takes
    the plain route, as in the reference, so the first three cells launch
    no kernel; whisper-small's decode step reaches ``flash_attention``
    through its cross-attention (one launch a layer, asserted), so the
@@ -2198,13 +2204,14 @@ CROSS_NEW_TOKENS = 16
 # times that, for cuBLAS's other summation orders in bfloat16.
 GRAD_NORM_TOL = 0.01
 # Phase 19: mamba2-1.3b, the default --arch of the reference's
-# launch/train.py, at full width with its depth cut to 12 of 48 layers
-# (each checkpoint 6.2 GB instead of 17.4 GB: the four saves and the
+# launch/train.py, at full width with its depth cut to 6 of 48 layers
+# (each checkpoint ~4.3 GB instead of 17.4 GB: the four saves and the
 # restore were two thirds of the phase, and the whole run has to leave
-# room for phases 20 and 21 inside its 600 s); AdamW as launch/train.py
+# room for phases 20 and 21 inside its 600 s, phase 21(b) holding a
+# full-depth training step); AdamW as launch/train.py
 # builds it but with 2 warm-up steps (its 100 would keep the learning
 # rate too small to move the loss in 6 steps); one injected failure.
-TRAIN = dict(arch="mamba2-1.3b", depth=12, batch=4, seq=2048, steps=6,
+TRAIN = dict(arch="mamba2-1.3b", depth=6, batch=4, seq=2048, steps=6,
              checkpoint_every=2, fail_at=3, lr=1e-3, warmup_steps=2,
              seed=19)
 TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
@@ -2519,9 +2526,10 @@ def phase_training() -> None:
         calls.append({"tokens": batch["tokens"], "loss": loss,
                       "grad_norm": gnorm, "s": time.perf_counter() - t0})
         if len(calls) == TRAIN["checkpoint_every"]:
-            # the state the trainer checkpoints at its first save, kept on
-            # the card (the update makes new tensors) until its restore
-            saved.append(new)
+            # the state the trainer checkpoints at its first save, copied
+            # on the card (the next steps update it in place) until its
+            # restore
+            saved.append(M.L.tree_map(torch.clone, new))
         return new, {"loss": loss, "grad_norm": gnorm}
 
     fired = []
@@ -2651,14 +2659,16 @@ def phase_training() -> None:
 # ---------------------------------------------------------------------------
 # Phase 20: the distribution layer on the card.
 # ---------------------------------------------------------------------------
-# h2o-danube-1.8b at full width and depth, the reference's own collective
-# case (its hillclimb's "collective" cell, act_shard="none"), on the plain
-# route with remat; the batch cut from the reference's 64 x 512 to 8 x 512
-# for one card's memory.  Each schedule is timed over DIST["reps"] calls
+# h2o-danube-1.8b at full width with its depth cut to 12 of 24 layers
+# (for the run's time: the four-card run of launch/multicard.py takes its
+# gradients at full depth), the reference's own collective case (its
+# hillclimb's "collective" cell, act_shard="none"), on the plain route
+# with remat; the batch cut from the reference's 64 x 512 to 8 x 512 for
+# one card's memory.  Each schedule is timed over DIST["reps"] calls
 # after its checked one.  Serving: 2 requests, a 64-token prompt, 16 new
 # tokens, attn_impl="seq_shard".
-DIST = dict(arch="h2o-danube-1.8b", batch=8, seq=512, reps=3, seed=23,
-            prompt=64, new_tokens=16)
+DIST = dict(arch="h2o-danube-1.8b", depth=12, batch=8, seq=512, reps=3,
+            seed=23, prompt=64, new_tokens=16)
 DIST_DIR = os.path.join(ROOT, "build", "chip_smoke_dist")
 # int8 on the pod hop against the exact gradient, per element of each
 # leaf: half an int8 step, scale / 2, to float32 rounding (the quotient
@@ -2698,7 +2708,7 @@ def phase_dist() -> None:
         say(20, f"process group: backend {dist.get_backend()}, world size "
                 f"{dist.get_world_size()}; mesh {mesh_mod.describe(mesh)} "
                 f"on {mesh.device_mesh.device_type}")
-        cfg = dataclasses.replace(zoo_config(DIST["arch"], None),
+        cfg = dataclasses.replace(zoo_config(DIST["arch"], DIST["depth"]),
                                   attn_impl="torch", act_shard="none")
         assert cfg.remat
         t0 = time.perf_counter()
@@ -2897,14 +2907,19 @@ def dist_checkpoint(cfg, params, mesh) -> None:
 # (a) fake dry runs at full size: (arch, shape, multi-pod, attn_override)
 DRYRUN_FAKE = [("qwen2-7b", "decode_32k", False, "cuda"),
                ("h2o-danube-1.8b", "long_500k", False, None),
-               ("mamba2-1.3b", "prefill_32k", True, "cuda"),
-               ("whisper-small", "train_4k", True, None)]
+               ("mamba2-1.3b", "prefill_32k", True, "cuda")]
 # (b) one-card runs, every layer at full width, the batch cut only for one
 # card's memory: (arch, shape, batch, flash launches a step must make)
+# the training cell's batch: of train_4k's 256 sequences of 4 096 tokens,
+# as many as one card's memory holds with the parameters, the moments and
+# remat's activations (fake census on the card: 17.4 GB of arguments and
+# a 50.2 GB temp at 16; twice that at 32)
+TRAIN_CELL_BATCH = 16
 DRYRUN_REAL = [("h2o-danube-1.8b", "prefill_32k", 1, 0),
                ("qwen2-7b", "decode_32k", 8, 0),
                ("h2o-danube-1.8b", "long_500k", 1, 0),
-               ("whisper-small", "decode_32k", 8, 12)]
+               ("whisper-small", "decode_32k", 8, 12),
+               ("mamba2-1.3b", "train_4k", TRAIN_CELL_BATCH, 0)]
 DRYRUN_SEED = 29
 # the predicted temp against the measured peak above the arguments
 TEMP_BAND = 0.15
@@ -2934,9 +2949,20 @@ def phase_dryrun() -> None:
         dryrun_one_card(arch, shape, batch, flash)
 
 
+def storage_ptrs(tree) -> list[int]:
+    """The storage address of every tensor of ``tree`` (a DTensor's local
+    shard's)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import model as M
+    return [(t.to_local() if isinstance(t, DTensor) else t)
+            .untyped_storage().data_ptr() for t in M.L.tree_leaves(tree)]
+
+
 def dryrun_one_card(arch: str, shape: str, batch: int, flash: int) -> None:
     """Phase 21(b): one cell fake on a one-rank fake mesh, then real on
-    the card, held to each other (see the module docstring)."""
+    the card, held to each other (see the module docstring).  A training
+    cell takes the plain route (no kernel has a backward), the others
+    ``attn_override="cuda"``."""
     from repro_torch import configs
     from repro_torch.dist import context
     from repro_torch.launch import dryrun, shapes, steps
@@ -2946,10 +2972,11 @@ def dryrun_one_card(arch: str, shape: str, batch: int, flash: int) -> None:
     cell = dataclasses.replace(shapes.make_cell(arch, shape),
                                global_batch=batch)
     one = ((1, 1), ("data", "model"))
+    override = None if cell.kind == "train" else "cuda"
     mesh = mesh_mod.make_fake_mesh(False, device=DEVICE, shape=one[0],
                                    axes=one[1])
     try:
-        case = steps.make_case(cfg, cell, mesh, attn_override="cuda",
+        case = steps.make_case(cfg, cell, mesh, attn_override=override,
                                device=DEVICE)
         fake, fake_s = dryrun.run_case(case, mesh)
         roof = dryrun.roofline_terms(
@@ -2960,8 +2987,12 @@ def dryrun_one_card(arch: str, shape: str, batch: int, flash: int) -> None:
         del case
         free_card()
         gen = torch.Generator(device=DEVICE).manual_seed(DRYRUN_SEED)
-        real = steps.make_case(cfg, cell, mesh, attn_override="cuda",
+        real = steps.make_case(cfg, cell, mesh, attn_override=override,
                                device=DEVICE, fill=steps.real_fill(gen))
+        # the arguments a step owns: its caches, or parameters + moments
+        owned = {"decode": lambda a: a[1], "train": lambda a: a[:2]}.get(
+            cell.kind)
+        given = storage_ptrs(owned(real.args)) if owned else None
         torch.ones(8, 8, device=DEVICE) @ torch.ones(8, 8, device=DEVICE)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2977,6 +3008,7 @@ def dryrun_one_card(arch: str, shape: str, batch: int, flash: int) -> None:
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         launches = launch_counts()
+        same = storage_ptrs(owned(out)) == given if owned else None
         del out, real
         free_card()
     finally:
@@ -2990,6 +3022,11 @@ def dryrun_one_card(arch: str, shape: str, batch: int, flash: int) -> None:
     miss = abs(temp - measured) / measured
     assert miss <= TEMP_BAND, (arch, shape, temp, measured, miss)
     assert launches["flash_attention"] == flash, (arch, shape, launches)
+    assert same in (None, True), (arch, shape, "a second copy")
+    owns = {None: "", True: "; the returned "
+            + ("caches" if cell.kind == "decode" else
+               "parameters and moments") + " are the arguments' storage "
+            "(written in place)"}[same]
     say(21, f"(b) {arch} {shape} at batch {batch} of "
             f"{shapes.make_cell(arch, shape).global_batch}, one rank: fake "
             f"run {fake_s:.1f} s; FLOPs fake {fake['flops']:.6e} == real "
@@ -3001,7 +3038,7 @@ def dryrun_one_card(arch: str, shape: str, batch: int, flash: int) -> None:
             f"({roof['dominant']}; {100 * roof['bound_s'] / step_s:.2f} % "
             f"of it); flash launches per step "
             f"{launches['flash_attention']}, ssd "
-            f"{launches['ssd_scan']} [{CARD}]")
+            f"{launches['ssd_scan']}{owns} [{CARD}]")
 
 
 def main() -> int:

@@ -39,6 +39,24 @@ def psum(x, group) -> torch.Tensor:
     return out
 
 
+class _ReplicatedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def psum_replicated(x, group) -> torch.Tensor:
+    """``psum`` of a value that every rank of ``group`` then holds as one
+    replicated result (the reference's global sum inside one program):
+    differentiable, each rank's gradient the result's gradient as it is
+    (a replicated result's gradient is whole on every rank already)."""
+    return _ReplicatedSum.apply(x, group)
+
+
 def psum_scatter(x, group) -> torch.Tensor:
     """Tiled reduce-scatter of a 1-D ``x`` whose length divides by the
     group's size: group position j gets chunk j of the sum."""

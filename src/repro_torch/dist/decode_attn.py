@@ -18,21 +18,15 @@ with ``perm=[(j, j + 1 mod n)]`` is one ``batch_isend_irecv`` within the
 ``model`` group: after step s a rank holds the chunk of rank
 ``(i - s) mod n``.
 
-The ring runs on local chunks (``ring_attention_local``).  Two layouts
-of the cache reach it:
-
-* a cache stored sharded by sequence (``cache_specs(seq_shard=True)``:
-  the DTensor caches of ``launch.steps.make_case`` and of a prefill of
-  DTensor tokens, whose decode step writes each new row on the owning
-  rank): ``models.layers``' sharded attention block passes each rank's
-  own chunk, so no rank ever holds the whole cache;
-* the *whole* cache on every rank (plain tensors, when the model runs
-  per rank under a live mesh, as the serving of ``chip_smoke.py`` phase
-  20 and the gloo serving tests do): ``models.layers.attention_call``
-  passes it to ``seq_sharded_attention``, which takes the rank's batch
-  rows and sequence chunk from it (and is the reference function's
-  counterpart, over whole arrays).  Storing these caches sharded too is
-  open (ROADMAP Queue 3).
+The ring runs on local chunks (``ring_attention_local``): under a live
+mesh every rank holds its own chunk of a cache stored sharded by
+sequence (``sharding.cache_specs(seq_shard=True)``), on DTensors (the
+caches of ``launch.steps.make_case`` and of a prefill of DTensor tokens,
+whose blocks run on the local shards) and on plain tensors alike (a
+prefill of plain tokens under the mesh, or a whole cache placed with
+``sharding.shard_cache``, the counterpart of jit's ``in_shardings``).
+Decode writes each new row on its owning rank, and both reach the ring
+through ``seq_sharded_attention``.
 """
 from __future__ import annotations
 
@@ -41,7 +35,6 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from repro_torch.dist import collectives, context, sharding
 from repro_torch.kernels import ref as kref
@@ -117,48 +110,48 @@ def _ring_attention(q, k, v, off, *, mesh, axis: str, n: int, chunk: int,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def seq_mesh(seq_axis: str = "model"):
+    """The ambient live mesh when its ``seq_axis`` has more than one rank
+    (a cache is then stored sharded by sequence over it), else None."""
+    mesh = context.current_mesh()
+    if mesh is None or not mesh.live or seq_axis not in mesh.axis_names \
+            or int(mesh.shape[seq_axis]) <= 1:
+        return None
+    return mesh
+
+
 def seq_sharded_attention(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None, q_offset=None,
                           scale: Optional[float] = None,
+                          skv: Optional[int] = None, rows=None,
                           seq_axis: str = "model"):
     """Decode attention with the KV sequence sharded over ``seq_axis``.
 
-    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0, whole on
-    every rank.  Matches ``kernels.ref.attention_ref`` semantics (causal /
-    sliding window / ``q_offset`` into a fixed cache buffer).  Each rank
-    takes its batch rows (``sharding.batch_entry``) and its sequence chunk
-    by its mesh coordinate, the chunks go round the ring, and the batch
-    rows are gathered back: every rank returns the whole (B, Hq, Sq, D).
+    q: (B, Hq, Sq, D); k, v: (b, Hkv, chunk, D), this rank's chunk of a
+    cache of ``skv`` rows (n chunks by default), Hq % Hkv == 0.  Matches
+    ``kernels.ref.attention_ref`` semantics (causal / sliding window /
+    ``q_offset`` into a fixed cache buffer).  ``rows``: the batch entry
+    (``sharding.batch_entry``) of the rows the chunk holds when q holds
+    every row: q's rows are narrowed to them, and the result's rows are
+    gathered back, so every rank returns the whole (B, Hq, Sq, D); with
+    None q holds the chunk's rows and the result is this rank's.
 
     Without an ambient mesh, or when the mesh lacks ``seq_axis`` or it has
-    size 1, this falls back to the single-device reference path, so
-    callers never need to special-case the unsharded world.
+    size 1 (the chunk is then the whole cache), this falls back to the
+    single-device reference path, so callers never need to special-case
+    the unsharded world.
     """
-    mesh = context.current_mesh()
-    if mesh is None or seq_axis not in mesh.axis_names \
-            or int(mesh.shape[seq_axis]) <= 1:
+    mesh = seq_mesh(seq_axis)
+    if mesh is None:
         return kref.attention_ref(q, k, v, causal=causal, window=window,
                                   scale=scale, q_offset=q_offset)
-
     n = int(mesh.shape[seq_axis])
-    b, hq = q.shape[:2]
-    _, hkv, skv, _ = k.shape
-    assert hq % hkv == 0, (hq, hkv)
-    pad = (-skv) % n
-    if pad:
-        k = F.pad(k, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, pad))
-    chunk = (skv + pad) // n
-
-    entry = sharding.batch_entry(mesh, b)
-    i = mesh.coordinate()[seq_axis]
-    qb = sharding.local_rows(mesh, q, entry)
-    kb = sharding.local_rows(mesh, k, entry).narrow(2, i * chunk, chunk)
-    vb = sharding.local_rows(mesh, v, entry).narrow(2, i * chunk, chunk)
-    out = ring_attention_local(qb, kb, vb, skv=skv, causal=causal,
-                               window=window, q_offset=q_offset,
-                               scale=scale, seq_axis=seq_axis)
-    axes = sharding.entry_axes(entry)
+    assert q.shape[1] % k.shape[1] == 0, (q.shape, k.shape)
+    out = ring_attention_local(
+        sharding.local_rows(mesh, q, rows), k, v,
+        skv=k.shape[2] * n if skv is None else skv, causal=causal,
+        window=window, q_offset=q_offset, scale=scale, seq_axis=seq_axis)
+    axes = sharding.entry_axes(rows)
     return collectives.all_gather(out, mesh.group(axes)) if axes else out
 
 
@@ -170,8 +163,7 @@ def ring_attention_local(q, k, v, *, skv: int, causal: bool = True,
     this rank's batch rows, whole over ``seq_axis``; k, v (b, Hkv, chunk,
     D) this rank's chunk of a cache of ``skv`` rows, the chunks laid out
     in ``seq_axis`` order.  Returns this rank's rows of the result; no
-    rank ever holds more than its chunk (``launch.steps.make_case``'s
-    ``long_500k`` cells, through ``models.layers``' sharded attention)."""
+    rank ever holds more than its chunk."""
     mesh = context.current_mesh()
     n = int(mesh.shape[seq_axis])
     sq, d = q.shape[2], q.shape[3]

@@ -345,3 +345,47 @@ def cache_specs(cfg, mesh, batch: int, seq_len: int, *,
         return fit_spec(spec, tuple(tree.shape), mesh)
 
     return walk(M.init_cache(cfg, batch, seq_len, device="meta"))
+
+
+def shard_cache(caches, mesh, *, device=None) -> Any:
+    """A cache tree of whole tensors (``models.init_cache``, a no-mesh
+    prefill's caches) placed on the live ``mesh`` for a sequence-sharded
+    decode on plain tensors, the counterpart of jit's ``in_shardings``:
+    every self-attention K/V cache (B, Hkv, S, hd) becomes this rank's
+    block of it under ``cache_specs(seq_shard=True)``, its batch rows
+    over the batch axes and its chunk of the sequence over ``model`` (a
+    new tensor; the whole one can be dropped).  The other caches (Mamba
+    states, cross-attention K/V) stay whole: a plain-tensor model
+    computes them whole on every rank.  A ``meta`` tree gives zeros on
+    ``device``.  The sequence must divide by the ``model`` axis, so that
+    every chunk is as long as every other (the decode step reads the
+    whole length as n chunks)."""
+    n = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
+
+    def block(t):
+        spec = fit_spec(P(_entry(context.data_axes(mesh)), None, "model",
+                          None), tuple(t.shape), mesh)
+        if n > 1 and spec[2] is None:
+            raise ValueError(f"a cache of {t.shape[2]} rows does not split "
+                             f"into {n} chunks over 'model'")
+        if t.device.type == "meta":
+            from repro_torch.launch.steps import local_shape
+            return torch.zeros(local_shape(tuple(t.shape), spec, mesh),
+                               dtype=t.dtype, device=device)
+        for d, entry in enumerate(spec):
+            t = local_rows(mesh, t, entry, dim=d)
+        return t.to(device or t.device).clone()
+
+    def walk(tree, attn: bool = False):
+        if isinstance(tree, dict):
+            return {k: walk(v, attn or k in ("self", "shared"))
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        if attn:
+            return block(tree)
+        if tree.device.type == "meta":
+            return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+        return tree
+
+    return walk(caches)

@@ -17,7 +17,9 @@ So every number is per device, as the reference's ``cost_analysis`` and
   so an upper bound on what a fused program moves (XLA's figure counts
   fused regions once);
 * ``peak_bytes``: the most bytes held at once by tensors the step
-  allocated (each storage from its creating op until it is freed, sizes
+  allocated (each storage from its creating op until it is freed; an
+  in-place write into an input, such as a donated argument, allocates
+  nothing; sizes
   rounded up to the CUDA caching allocator's 512-byte blocks), above
   whatever was alive before: the temp column, to compare with
   ``torch.cuda.max_memory_allocated()`` above the arguments;
@@ -71,6 +73,14 @@ def _tensors(x):
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _storage(t: torch.Tensor):
+    """``t``'s storage, or None for a tensor without one."""
+    try:
+        return t.untyped_storage()
+    except (RuntimeError, NotImplementedError):
+        return None
 
 
 def _group_size(args) -> int:
@@ -165,16 +175,19 @@ class Census(TorchDispatchMode):
         self.live -= nbytes
         self._seen.discard(key)
 
-    def _track(self, out) -> None:
+    def _track(self, out, ins=()) -> None:
+        """Count the storages of ``out`` that are new: an output on the
+        storage of one of the op's inputs ``ins`` (an in-place write, as
+        into a donated argument) allocates nothing."""
+        held = {id(_storage(t)) for t in ins}
         for t in _tensors(out):
             if t.device.type == "meta":
                 continue    # shapes alone (a cache's layout), no memory
-            try:
-                st = t.untyped_storage()
-            except (RuntimeError, NotImplementedError):
+            st = _storage(t)
+            if st is None:
                 continue
             key = id(st)
-            if key in self._seen:
+            if key in self._seen or key in held:
                 continue
             nb = -(-st.nbytes() // BLOCK) * BLOCK
             if nb == 0:
@@ -215,5 +228,5 @@ class Census(TorchDispatchMode):
                 self.flops += int(formula(*args, **kwargs, out_val=out))
             self.bytes_accessed += sum(map(_nbytes, ins)) + sum(
                 map(_nbytes, _tensors(out)))
-            self._track(out)
+            self._track(out, ins)
         return out

@@ -92,9 +92,9 @@ def bottleneck_note(r: dict) -> str:
     kind = r["kind"]
     if dom == "memory_s":
         if kind == "decode":
-            return ("KV cache streaming: the eager cache copy per step and "
-                    "attention's float32 reads; a flash decode kernel "
-                    "(csrc/flash_attention.cu) with an in-place cache write")
+            return ("KV cache streaming: attention's float32 reads of the "
+                    "cache (written in place); a split-K decode attention "
+                    "kernel (csrc/flash_attention.cu)")
         return ("activation traffic of eager ops: flash_attention / "
                 "ssd_scan (csrc/*.cu) on the kernel route, fusion of the "
                 "norms and casts")

@@ -12,7 +12,10 @@ step function and DTensors over the mesh (fake ones, on PyTorch's
 ``FakeTensorMode``, unless a ``fill`` makes real ones), whose local
 shards are the reference's per-device shapes; running the step on them
 is the global program, DTensor inserting the collectives
-(``launch.dryrun``).
+(``launch.dryrun``).  The training and decode steps own their
+parameters, optimizer state and caches, as the reference's
+``donate_argnums`` donates them: they write into the arguments' local
+shards, so the census counts no second copy.
 
 Training takes the plain routes: neither kernel has a backward (nor has
 the reference's Pallas kernels, and its training step runs with
@@ -69,7 +72,11 @@ def make_train_step(cfg: mcfg.ModelConfig, ocfg: AdamWConfig,
     optimizer still sees the full global batch.
 
     ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``, batch a dict of tensors on the parameters' device."""
+    metrics)``, batch a dict of tensors on the parameters' device.  The
+    step owns ``params`` and ``opt_state`` (the reference's training case
+    donates both): AdamW writes into their tensors, which come back
+    (``adamw_update(donate=True)``, bit-equal to the functional form).  A
+    caller that keeps the old values passes a copy."""
     if cfg.attn_impl != "torch":
         raise ValueError(
             f"{cfg.name}: training runs the plain routes (the CUDA kernels "
@@ -94,7 +101,8 @@ def make_train_step(cfg: mcfg.ModelConfig, ocfg: AdamWConfig,
             loss = loss / accum_steps
             metrics = {"ce": loss, "aux": torch.zeros(
                 (), dtype=torch.float32, device=loss.device)}
-        params, opt_state, om = adamw_update(ocfg, params, grads, opt_state)
+        params, opt_state, om = adamw_update(ocfg, params, grads, opt_state,
+                                             donate=True)
         return params, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step
@@ -127,8 +135,13 @@ def make_prefill_step(cfg: mcfg.ModelConfig, max_seq: int):
 
 
 def make_decode_step(cfg: mcfg.ModelConfig):
+    """``serve_step(params, caches, token, pos) -> (logits, caches)``.
+    The step owns ``caches`` (the reference's decode case donates them):
+    the new rows are written into the given tensors, which come back
+    (``models.decode_step(donate=True)``).  A caller that keeps the old
+    cache calls ``models.decode_step`` or passes a copy."""
     def serve_step(params, caches, token, pos):
-        return M.decode_step(cfg, params, caches, token, pos)
+        return M.decode_step(cfg, params, caches, token, pos, donate=True)
     return serve_step
 
 

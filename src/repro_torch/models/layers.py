@@ -309,25 +309,23 @@ def _project_kv(p, src):
 
 
 def attention_call(cfg: ModelConfig, q, k, v, *, causal, window,
-                   q_offset=None, ring=None):
+                   q_offset=None, ring=None, rows=None):
     """Dispatch as the reference does: under ``attn_impl="seq_shard"`` a
     one-row query (decode) goes to ``dist.decode_attn``'s
-    sequence-sharded attention (the plain route without a mesh; with
-    ``ring`` = (the whole cache's length, this rank's chunk offset), k/v
-    are this rank's chunk of a cache stored sharded); a call with a
-    ``q_offset`` (self-attention against a cache), ``"torch"`` or
-    ``"seq_shard"`` takes the plain route (chunked above 1 024 queries);
-    under ``"cuda"`` every other call reaches the kernel: the cache-free
-    forward and every cross-attention call, prefill and decode included,
-    at any length."""
+    sequence-sharded attention (the plain route without a mesh; under a
+    live mesh k/v are this rank's chunk of a cache stored sharded by
+    sequence, ``ring`` = (the whole cache's length, this rank's chunk
+    offset), and ``rows`` the batch entry of the rows the chunk holds
+    when q holds every row); a call with a ``q_offset`` (self-attention
+    against a cache), ``"torch"`` or ``"seq_shard"`` takes the plain
+    route (chunked above 1 024 queries); under ``"cuda"`` every other
+    call reaches the kernel: the cache-free forward and every
+    cross-attention call, prefill and decode included, at any length."""
     if cfg.attn_impl == "seq_shard" and q.shape[2] == 1:
         from repro_torch.dist import decode_attn
-        if ring is not None:
-            return decode_attn.ring_attention_local(
-                q, k, v, skv=ring[0], causal=causal, window=window,
-                q_offset=q_offset)
         return decode_attn.seq_sharded_attention(
-            q, k, v, causal=causal, window=window, q_offset=q_offset)
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            skv=ring[0] if ring is not None else None, rows=rows)
     if q_offset is not None or cfg.attn_impl in ("torch", "seq_shard"):
         if q.shape[2] > 1024:
             return kref.attention_chunked(q, k, v, causal=causal,
@@ -344,19 +342,44 @@ class _Layout:
     (all zero / None on one device): ``row0`` the global position of its
     first query row, ``kv`` the slice of the K/V heads its query heads
     read (None: all it holds), ``chunk`` (the cache's global length, this
-    rank's offset in it) for a cache stored sharded by sequence."""
+    rank's offset in it) for a cache stored sharded by sequence, and
+    ``rows`` the batch entry of the rows such a cache holds when the
+    block's activations hold every row (plain tensors under a live mesh,
+    ``_plain_layout``)."""
     row0: int = 0
     kv: Optional[slice] = None
     chunk: Optional[tuple[int, int]] = None
+    rows: Any = None
 
 
-def _write_cache(cache, k, v, pos: int, off: int = 0):
+def _plain_layout(cfg: ModelConfig, cache, cross: bool, batch: int):
+    """The layout of a plain-tensor self-attention cache: under a live
+    mesh whose ``model`` axis has n > 1 ranks and ``attn_impl=
+    "seq_shard"``, each rank holds its chunk of the sequence and its
+    batch rows (``sharding.shard_cache``, the DTensor caches' layout),
+    the whole cache n chunks long; else the whole cache."""
+    if cache is None or cross or cfg.attn_impl != "seq_shard":
+        return _Layout()
+    from repro_torch.dist import decode_attn, sharding
+    mesh = decode_attn.seq_mesh()
+    if mesh is None:
+        return _Layout()
+    n, chunk = int(mesh.shape["model"]), cache["k"].shape[2]
+    return _Layout(chunk=(n * chunk, mesh.coordinate()["model"] * chunk),
+                   rows=sharding.batch_entry(mesh, batch))
+
+
+def _write_cache(cache, k, v, pos: int, off: int = 0, donate: bool = False):
     """The cache with k/v (B, Hkv, s, hd) written at rows ``pos``..``pos +
-    s``, into new tensors (the caller's cache is left as it was, as the
-    reference's functional update leaves it).  ``off``: the global row
-    of the cache's first row (a rank's chunk of a sequence-sharded
-    cache), which takes only the rows that fall in it."""
-    ck, cv = cache["k"].clone(), cache["v"].clone()
+    s``.  ``donate``: the step owns the cache, so the rows are written
+    into it and its own tensors come back (the reference's donated
+    buffers); else into new tensors, the caller's cache left as it was
+    (the reference's functional update).  ``off``: the global row of the
+    cache's first row (a rank's chunk of a sequence-sharded cache), which
+    takes only the rows that fall in it."""
+    ck, cv = cache["k"], cache["v"]
+    if not donate:
+        ck, cv = ck.clone(), cv.clone()
     s, n = k.shape[2], ck.shape[2]
     lo, hi = max(pos, off), min(pos + s, off + n)
     if lo < hi:
@@ -366,7 +389,8 @@ def _write_cache(cache, k, v, pos: int, off: int = 0):
 
 
 def _attention(cfg: ModelConfig, p, yq, ykv, *, causal, window, positions,
-               cross, memory, cache, pos, lay: _Layout = _Layout()):
+               cross, memory, cache, pos, donate: bool = False,
+               lay: _Layout = _Layout()):
     """The attention block between its norm and its residual: queries
     from ``yq``, keys and values from ``ykv`` (the same rows on one
     device), rope, the cache write, attention and the output projection.
@@ -379,8 +403,11 @@ def _attention(cfg: ModelConfig, p, yq, ykv, *, causal, window, positions,
         if memory is not None:
             k, v = _project_kv(p, memory.to(yq.dtype))
             if cache is not None:
-                new_cache = {"k": k.to(cache["k"].dtype),
-                             "v": v.to(cache["v"].dtype)}
+                new_cache = {n: t.to(cache[n].dtype)
+                             for n, t in (("k", k), ("v", v))}
+                if donate:
+                    new_cache = {n: cache[n].copy_(t)
+                                 for n, t in new_cache.items()}
         else:
             if cache is None:
                 raise ValueError("cross-attention decode needs a prefilled "
@@ -396,8 +423,15 @@ def _attention(cfg: ModelConfig, p, yq, ykv, *, causal, window, positions,
             positions[..., lay.row0:lay.row0 + sq]
         q, k = rope(q, k, positions, cfg.rope_theta, q_positions=q_pos)
         if cache is not None:
-            ck, cv = _write_cache(cache, k, v, pos,
-                                  lay.chunk[1] if lay.chunk else 0)
+            src = (k, v)
+            if lay.rows is not None:    # the rows this rank's cache holds
+                from repro_torch.dist import context, sharding
+                mesh = context.current_mesh()
+                src = tuple(sharding.local_rows(mesh, t, lay.rows)
+                            for t in src)
+            ck, cv = _write_cache(cache, *src, pos,
+                                  lay.chunk[1] if lay.chunk else 0, donate)
+            del src     # k and v are rebound below: hold no copy of them
             new_cache = {"k": ck, "v": cv}
             q_offset = pos + lay.row0
             if lay.chunk is None or sq == 1:
@@ -420,19 +454,23 @@ def _attention(cfg: ModelConfig, p, yq, ykv, *, causal, window, positions,
         k, v = k[:, lay.kv], v[:, lay.kv]
     out = attention_call(cfg, q, k, v, causal=causal, window=window,
                          q_offset=q_offset,
-                         ring=lay.chunk if not cross else None)
+                         ring=lay.chunk if not cross else None,
+                         rows=lay.rows)
     return torch.einsum("bhtk,hkd->btd", out.to(yq.dtype), p["wo"]), \
         new_cache
 
 
 def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
                positions=None, cross: bool = False, memory=None, cache=None,
-               pos=None):
+               pos=None, donate: bool = False):
     """Self- or cross-attention block (pre-norm, residual).
 
     Self-attention: cache dict(k=(B,Hkv,Smax,hd), v=...), written at
     ``pos`` into a new tensor (the caller's cache is left as it was, as
-    the reference's functional update leaves it).  Cross-attention (no
+    the reference's functional update leaves it), or, ``donate``, into
+    the cache itself (``_write_cache``).  Under a live mesh with
+    ``attn_impl="seq_shard"`` a plain-tensor cache holds this rank's
+    chunk (``_plain_layout``).  Cross-attention (no
     rope, not causal): with ``memory`` the K/V are projected from it (and
     stored to the cache when one is given — prefill); without ``memory``
     the cached K/V are used (decode).  On DTensors under a live mesh the
@@ -440,10 +478,13 @@ def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
     (``_attn_sharded``).  Returns (x, new_cache_or_None)."""
     y = apply_norm(cfg, p["ln"], x)
     kw = dict(causal=causal, window=window, positions=positions,
-              cross=cross, memory=memory, cache=cache, pos=pos)
+              cross=cross, memory=memory, cache=cache, pos=pos,
+              donate=donate)
     mesh = _dtensor_mesh(y)
     if mesh is None:
-        out, new_cache = _attention(cfg, p, y, y, **kw)
+        out, new_cache = _attention(
+            cfg, p, y, y, **kw,
+            lay=_plain_layout(cfg, cache, cross, y.shape[0]))
     else:
         out, new_cache = _attn_sharded(cfg, p, y, mesh, **kw)
     return x + out, new_cache
@@ -586,7 +627,8 @@ def moe_block(cfg: ModelConfig, p, x):
     over ``model`` (expert parallelism: every ``model`` rank routes its
     batch rows alike and runs its own experts, the combined outputs a
     pending sum over ``model``) and the shared expert is Megatron-split;
-    routing, capacity and the auxiliary loss are each batch shard's."""
+    routing, capacity and the auxiliary loss are the global batch's, as
+    in the reference's one program (``_moe_routed``'s ``shards``)."""
     y = apply_norm(cfg, p["ln"], x)
     mesh = _dtensor_mesh(y)
     if mesh is not None:
@@ -605,34 +647,47 @@ def _shared_expert(sp, y):
     return (F.silu(y @ sp["wg"]) * (y @ sp["wu"])) @ sp["wd"]
 
 
-def _moe_routed(cfg: ModelConfig, p, y, e0: int = 0):
+def _moe_routed(cfg: ModelConfig, p, y, e0: int = 0, shards=None):
     """The routed experts' combined output (B, S, d) and the auxiliary
     loss, over the experts ``e0`` .. ``e0 + p["wg"].shape[0]`` (all of
-    them on one device): choices of other experts add nothing."""
+    them on one device): choices of other experts add nothing.
+
+    ``shards`` = (process group, this rank's index, n): ``y`` is this
+    rank's block of rows of a batch split n ways (``_moe_sharded``), and
+    the routing is the global batch's, as the reference's one program
+    routes it: the capacity from the global token count, each pair's
+    slot its place in the global token-major order (this rank's running
+    count plus the counts of the lower ranks, one all-gather of an (E,)
+    vector), the auxiliary loss from the global means.  The expert
+    buffer holds this rank's pairs only, at their places among its own
+    (at most ``min(capacity, T * k)`` of them per expert)."""
     e = cfg.moe
     b, s, d = y.shape
     t = b * s
+    n = 1 if shards is None else shards[2]
     yt = y.reshape(t, d)
 
-    logits = (yt @ p["router"]).float()
-    gates = torch.softmax(logits, dim=-1)                      # (T, E)
-    weights, experts = top_k(gates, e.top_k)                   # (T, k)
+    gates, weights, experts, onehot, slot = _route(cfg, p, yt)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
                                     min=1e-9)
-
-    cap = max(math.ceil(t * e.top_k * e.capacity_factor / e.n_experts), 4)
+    cap = moe_capacity(cfg, t * n)
     flat_e = experts.reshape(-1)                               # (T*k,)
-    onehot = F.one_hot(flat_e, e.n_experts)
-    slot = torch.gather(torch.cumsum(onehot, dim=0), 1,
-                        flat_e[:, None])[:, 0] - 1             # (T*k,)
+    if shards is None:
+        rows, fits = cap, slot < cap
+    else:
+        from repro_torch.dist import collectives
+        group, index, _ = shards
+        every = collectives.all_gather(onehot.sum(0)[None], group)  # (n, E)
+        below = every[:index].sum(0)
+        rows, fits = min(cap, t * e.top_k), slot + below[flat_e] < cap
     n_local = p["wg"].shape[0]
     mine = (flat_e >= e0) & (flat_e < e0 + n_local)
-    keep = (slot < cap) & mine
-    slot_c = torch.where(slot < cap, slot, cap - 1)
+    keep = fits & mine
+    slot_c = torch.where(fits, slot, rows - 1)
     local_e = torch.where(mine, flat_e - e0, 0)
 
     tok_idx = torch.arange(t, device=y.device).repeat_interleave(e.top_k)
-    buf = torch.zeros((n_local, cap, d), dtype=y.dtype, device=y.device)
+    buf = torch.zeros((n_local, rows, d), dtype=y.dtype, device=y.device)
     buf.index_put_((local_e, slot_c),
                    torch.where(keep[:, None], yt[tok_idx], 0),
                    accumulate=True)
@@ -649,10 +704,47 @@ def _moe_routed(cfg: ModelConfig, p, y, e0: int = 0):
                         gathered * wflat[:, None].to(gathered.dtype))
 
     # load-balance auxiliary loss (Switch-style), first choices only
-    me = torch.mean(F.one_hot(experts[:, 0], e.n_experts).float(), dim=0)
-    ce = torch.mean(gates, dim=0)
+    first = F.one_hot(experts[:, 0], e.n_experts).float()
+    if shards is None:
+        me, ce = torch.mean(first, dim=0), torch.mean(gates, dim=0)
+    else:
+        from repro_torch.dist import collectives
+        me = collectives.psum_replicated(first.sum(0), shards[0]) / (t * n)
+        ce = collectives.psum_replicated(gates.sum(0), shards[0]) / (t * n)
     aux = e.n_experts * torch.sum(me * ce)
     return combined.reshape(b, s, d), aux
+
+
+def _route(cfg: ModelConfig, p, yt):
+    """The router on tokens ``yt`` (T, d): gates (T, E) float32, the top-k
+    gates and experts (T, k), and for each (token, choice) pair in
+    token-major order its expert's one-hot (T*k, E) and its slot, the
+    count of earlier pairs of that expert."""
+    gates = torch.softmax((yt @ p["router"]).float(), dim=-1)
+    weights, experts = top_k(gates, cfg.moe.top_k)
+    flat_e = experts.reshape(-1)
+    onehot = F.one_hot(flat_e, cfg.moe.n_experts)
+    slot = torch.gather(torch.cumsum(onehot, dim=0), 1,
+                        flat_e[:, None])[:, 0] - 1
+    return gates, weights, experts, onehot, slot
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for a batch of ``tokens`` tokens (the
+    reference's rule)."""
+    e = cfg.moe
+    return max(math.ceil(tokens * e.top_k * e.capacity_factor
+                         / e.n_experts), 4)
+
+
+def moe_dropped(cfg: ModelConfig, p, x) -> int:
+    """How many (token, choice) pairs of ``moe_block(cfg, p, x)`` on one
+    device fall past their expert's capacity (a check that capacity
+    binds; a host sync)."""
+    y = apply_norm(cfg, p["ln"], x)
+    yt = y.reshape(-1, y.shape[-1])
+    slot = _route(cfg, p, yt)[-1]
+    return int((slot >= moe_capacity(cfg, yt.shape[0])).sum())
 
 
 def _moe_sharded(cfg: ModelConfig, p, y, mesh):
@@ -668,10 +760,15 @@ def _moe_sharded(cfg: ModelConfig, p, y, mesh):
     def fit(spec, t):
         return shd.fit_spec(spec, tuple(t.shape), mesh)
     rows = fit(shd.P(b, None, None), y)
+    split = shd.entry_axes(rows[0])
+    shards = (mesh.group(split), mesh.index(split),
+              math.prod(int(mesh.shape[a]) for a in split)) if split \
+        else None
     w = shd.P(em, None, None)
     routed, aux = shd.local_region(
         mesh, lambda yy, r, wg, wu, wd: _moe_routed(
-            cfg, {"router": r, "wg": wg, "wu": wu, "wd": wd}, yy, e0),
+            cfg, {"router": r, "wg": wg, "wu": wu, "wd": wd}, yy, e0,
+            shards),
         [(y, rows), (p["router"], shd.P(None, None)), (p["wg"], w),
          (p["wu"], w), (p["wd"], w)],
         [rows, shd.P()], partial=((("model",) if em else ()), ()))
@@ -731,12 +828,15 @@ def _causal_conv(x, w, state=None):
     return y.to(torch.promote_types(xp.dtype, w.dtype)), new_state
 
 
-def mamba_block(cfg: ModelConfig, p, x, *, cache=None, fresh=False):
+def mamba_block(cfg: ModelConfig, p, x, *, cache=None, fresh=False,
+                donate: bool = False):
     """Mamba-2 block. cache: dict(conv_x/conv_b/conv_c states, ssm state
     (B, H, N, P)).  Without a cache the chunked SSD runs through
     ``ops.ssd`` (the kernel under ``attn_impl="cuda"``); with one, the
     per-token recurrence, or, ``fresh`` (a prefill from position 0), the
-    scan and the final state in closed form.  On DTensors under a live
+    scan and the final state in closed form; ``donate``: the new states
+    are written into the cache's own tensors, which come back.  On
+    DTensors under a live
     mesh the input projections and the mixer (the convolutions, the scan
     and the skip) run on each rank's shards, the heads and ``d_inner``
     split over ``model`` where they divide (``_mamba_sharded``), and so
@@ -746,9 +846,10 @@ def mamba_block(cfg: ModelConfig, p, x, *, cache=None, fresh=False):
     if mesh is None:
         z, xs, bs, cs, dt = _mamba_in(p, y)
         yflat, new_cache = _mamba_mixer(cfg, p, xs, bs, cs, dt, cache,
-                                        fresh)
+                                        fresh, donate)
     else:
-        z, yflat, new_cache = _mamba_sharded(cfg, p, y, cache, mesh, fresh)
+        z, yflat, new_cache = _mamba_sharded(cfg, p, y, cache, mesh, fresh,
+                                             donate)
     # gated RMSNorm (Mamba-2), in float32
     inv = torch.rsqrt(_mean_last(yflat * yflat) + 1e-6)
     yflat = yflat * inv * p["gate_norm"].float()
@@ -801,14 +902,14 @@ def _final_state(xh, dth, a, bh):
 
 
 def _mamba_mixer(cfg: ModelConfig, p, xs, bs, cs, dt, cache,
-                 fresh: bool = False):
+                 fresh: bool = False, donate: bool = False):
     """The causal convolutions, the SSD scan (or the recurrence against
     the cache) and the skip: (B, S, H * P) float32 and the new cache.
     ``fresh``: the cache holds a zero state (a prefill from position 0),
     so the outputs come from the chunked scan (its plain version: a
     prefill takes the plain routes, as in the reference) and the new
     state in closed form (``_final_state``), not from a step per
-    token."""
+    token.  ``donate``: the new states go into the cache's tensors."""
     s_cfg = cfg.ssm
     b, s, _ = xs.shape
     h, pdim, n = dt.shape[-1], s_cfg.head_dim, s_cfg.d_state
@@ -849,17 +950,23 @@ def _mamba_mixer(cfg: ModelConfig, p, xs, bs, cs, dt, cache,
         for t in range(s):
             dbx = (dth[:, :, t, None, None] * bhh[:, :, t, :, None]
                    * xf[:, :, t, None, :])
-            state = da[:, :, t, None, None] * state + dbx
+            if donate:    # the step owns the cache: update it in place
+                state = state.mul_(da[:, :, t, None, None]).add_(dbx)
+            else:
+                state = da[:, :, t, None, None] * state + dbx
             ys.append(torch.einsum("bhnp,bhn->bhp", state, chh[:, :, t]))
         yh = torch.stack(ys, dim=2)                             # (B,H,S,P)
         new_cache = {"conv_x": cx, "conv_b": cb, "conv_c": cc, "ssm": state}
 
+    if donate and new_cache is not None:
+        new_cache = {k: t if t is cache[k] else cache[k].copy_(t)
+                     for k, t in new_cache.items()}
     yh = yh.float() + p["d_skip"].float()[None, :, None, None] * xh.float()
     return yh.transpose(1, 2).reshape(b, s, h * pdim), new_cache
 
 
 def _mamba_sharded(cfg: ModelConfig, p, y, cache, mesh,
-                   fresh: bool = False):
+                   fresh: bool = False, donate: bool = False):
     """``_mamba_in`` and ``_mamba_mixer`` on each rank's shards: batch
     over the batch axes, the heads (and ``d_inner`` with them) over
     ``model`` where they divide; B and C (the groups) whole on every
@@ -888,7 +995,8 @@ def _mamba_sharded(cfg: ModelConfig, p, y, cache, mesh,
         lp = dict(zip(keys, rest[:len(keys)]))
         lc = dict(zip(c_keys, rest[len(keys):])) if c_keys else None
         z, xs, bs, cs, dt = _mamba_in(lp, yy)
-        yflat, nc = _mamba_mixer(cfg, lp, xs, bs, cs, dt, lc, fresh)
+        yflat, nc = _mamba_mixer(cfg, lp, xs, bs, cs, dt, lc, fresh,
+                                 donate)
         return (z, yflat) + tuple(nc[k] for k in c_keys)
 
     inner_out = fit(inner, (*y.shape[:2], cfg.d_inner))

@@ -158,15 +158,17 @@ def abstract_params(cfg: ModelConfig) -> Params:
 # Forward
 # ---------------------------------------------------------------------------
 def _block_forward(cfg: ModelConfig, kind: str, p, x, *, positions,
-                   memory=None, shared=None, cache=None, pos=None):
-    """Returns (x, aux_loss or None, new_cache or None)."""
+                   memory=None, shared=None, cache=None, pos=None,
+                   donate: bool = False):
+    """Returns (x, aux_loss or None, new_cache or None); ``donate``: the
+    caches are written in place (``decode_step``)."""
     aux = None
     new_cache: dict = {}
     if kind in ("attn", "moe", "cross"):
         c_self = cache.get("self") if cache else None
         x, nc = L.attn_block(cfg, p["attn"], x, causal=True,
                              window=cfg.sliding_window, positions=positions,
-                             cache=c_self, pos=pos)
+                             cache=c_self, pos=pos, donate=donate)
         if nc is not None:
             new_cache["self"] = nc
         if kind == "cross":
@@ -183,13 +185,14 @@ def _block_forward(cfg: ModelConfig, kind: str, p, x, *, positions,
         c_m = cache.get("mamba") if cache else None
         x, nc = L.mamba_block(cfg, p["mamba"], x, cache=c_m,
                               fresh=c_m is not None and pos == 0
-                              and x.shape[1] > 1)
+                              and x.shape[1] > 1, donate=donate)
         if nc is not None:
             new_cache["mamba"] = nc
         if kind == "hybrid":
             c_s = cache.get("shared") if cache else None
             x, ncs = L.attn_block(cfg, shared["attn"], x, causal=True,
-                                  positions=positions, cache=c_s, pos=pos)
+                                  positions=positions, cache=c_s, pos=pos,
+                                  donate=donate)
             x = L.apply_mlp(cfg, shared["mlp"], x)
             if ncs is not None:
                 new_cache["shared"] = ncs
@@ -207,7 +210,8 @@ def _remat(cfg: ModelConfig, x, p_unit) -> bool:
 
 
 def _run_stage(cfg: ModelConfig, unit: tuple[str, ...], stage_params, x, *,
-               positions, memory=None, shared=None, cache=None, pos=None):
+               positions, memory=None, shared=None, cache=None, pos=None,
+               donate: bool = False):
     """Loop one stage over its repeats.  ``cache`` (if any) is a list with
     one unit cache per repeat; so are the returned new caches.  Without a
     cache each repeat may run under ``torch.utils.checkpoint``
@@ -225,7 +229,8 @@ def _run_stage(cfg: ModelConfig, unit: tuple[str, ...], stage_params, x, *,
             ci = c_unit[str(i)] if c_unit is not None else None
             x, a, nc = _block_forward(cfg, kind, p_unit[str(i)], x,
                                       positions=positions, memory=memory,
-                                      shared=shared, cache=ci, pos=pos)
+                                      shared=shared, cache=ci, pos=pos,
+                                      donate=donate)
             if a is not None:
                 a_unit = a_unit + a
             if nc is not None:
@@ -270,14 +275,15 @@ def _encode(cfg: ModelConfig, params: Params, frames):
 
 def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
             frames=None, img_embeds=None, positions=None,
-            caches=None, pos=None):
+            caches=None, pos=None, donate: bool = False):
     """Token ids -> hidden states (pre-unembed).
 
     memory/frames/img_embeds: cross-attention sources (encoder-decoder /
     VLM; frames and image embeddings in the compute dtype, as the
     reference's input specs give them).  caches/pos: decode mode (caches
-    mirror the stages' structure).  Returns (hidden (B,S,d), aux_loss,
-    new_caches, memory)."""
+    mirror the stages' structure; ``donate``: written in place, see
+    ``decode_step``).  Returns (hidden (B,S,d), aux_loss, new_caches,
+    memory)."""
     _check_device(cfg, tokens)
     if frames is not None:
         memory = _encode(cfg, params, frames)
@@ -296,7 +302,8 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
         c = caches[si] if caches is not None else None
         x, aux, nc = _run_stage(cfg, unit, params["stages"][si], x,
                                 positions=positions, memory=memory,
-                                shared=shared, cache=c, pos=pos)
+                                shared=shared, cache=c, pos=pos,
+                                donate=donate)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
@@ -482,18 +489,32 @@ def _placed_cache(cfg: ModelConfig, mesh, batch: int, max_seq: int,
     return walk(init_cache(cfg, batch, max_seq, device="meta"), specs)
 
 
+def _fresh_cache(cfg: ModelConfig, tokens, max_seq: int):
+    """A prefill's fresh caches: DTensors on the mesh for DTensor tokens
+    (``_placed_cache``); for plain tokens under a live mesh with
+    ``attn_impl="seq_shard"``, each rank's chunks
+    (``sharding.shard_cache``); else whole caches on the tokens'
+    device."""
+    b = tokens.shape[0]
+    mesh = L._dtensor_mesh(tokens)
+    if mesh is not None:
+        return _placed_cache(cfg, mesh, b, max_seq, tokens.device)
+    from repro_torch.dist import decode_attn
+    mesh = decode_attn.seq_mesh() if cfg.attn_impl == "seq_shard" else None
+    if mesh is None:
+        return init_cache(cfg, b, max_seq, device=tokens.device)
+    from repro_torch.dist import sharding
+    return sharding.shard_cache(init_cache(cfg, b, max_seq, device="meta"),
+                                mesh, device=tokens.device)
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Params, tokens, max_seq: int, *,
             frames=None, img_embeds=None):
     """Run the prompt through the model, filling fresh KV/SSM caches from
     position 0 (and the cross caches from the encoder's or the image
     memory).  Returns (last-token logits, caches, memory)."""
-    b, _ = tokens.shape
-    mesh = L._dtensor_mesh(tokens)
-    if mesh is None:
-        caches = init_cache(cfg, b, max_seq, device=tokens.device)
-    else:
-        caches = _placed_cache(cfg, mesh, b, max_seq, tokens.device)
+    caches = _fresh_cache(cfg, tokens, max_seq)
     hidden, _, caches, memory = forward(
         cfg, params, tokens, frames=frames, img_embeds=img_embeds,
         caches=caches, pos=0)
@@ -503,14 +524,23 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_seq: int, *,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, caches, token, pos, *,
-                memory=None):
+                memory=None, donate: bool = False):
     """One decode step. token: (B, 1) ids; pos: the current length (an
     int).  Cross layers attend over their cached memory K/V, or over
     ``memory`` projected anew when it is given.  Returns (logits (B,1,V),
-    new_caches)."""
+    new_caches).
+
+    By default the caller's caches are left as they were (the reference's
+    functional step; ``ServeEngine`` keeps rows of the old cache).  With
+    ``donate=True`` the step owns them, as the reference's decode case
+    donates them (``launch.steps.make_decode_step``): the new K/V rows
+    and Mamba states are written into the given tensors (a DTensor's
+    local shards), and the returned caches hold those tensors, so no
+    second copy is made.  A caller that keeps the old cache passes
+    ``donate=False`` or a copy."""
     positions = torch.zeros(token.shape[-1], dtype=torch.long,
                             device=token.device) + pos
     hidden, _, caches, _ = forward(
         cfg, params, token, memory=memory, positions=positions,
-        caches=caches, pos=pos)
+        caches=caches, pos=pos, donate=donate)
     return unembed(cfg, params, hidden), caches

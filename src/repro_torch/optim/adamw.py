@@ -87,10 +87,16 @@ def adamw_init(params) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, *,
+                 donate: bool = False):
     """One AdamW step.  Returns (new_params, new_state, metrics) with
-    metrics ``{"grad_norm", "lr"}``; the inputs are left as they were."""
-    step = state["step"] + 1
+    metrics ``{"grad_norm", "lr"}``.  By default the inputs are left as
+    they were.  ``donate=True``: the step owns ``params`` and ``state``
+    (the reference's training case donates them) and writes the update
+    into their tensors, leaf by leaf, which come back; the arithmetic is
+    the same operations in the same order, so the result is bit-equal to
+    the functional form's."""
+    step = state["step"].add_(1) if donate else state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
@@ -99,9 +105,15 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
 
     def upd(stacked, p, g, m, v):
+        if donate:
+            g = _like(g, m)
         g = g.to(torch.float32) * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        if donate:
+            m = m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v = v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        else:
+            m = cfg.b1 * m + (1 - cfg.b1) * g
+            v = cfg.b2 * v + (1 - cfg.b2) * g * g
         mh = m / b1c
         vh = v / b2c
         delta = mh / (torch.sqrt(vh) + cfg.eps)
@@ -109,9 +121,22 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
         # reference's layout
         if p.dim() + stacked >= 2:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
+        if donate and p.dtype == torch.float32:
+            return p.sub_(lr * delta), m, v
         newp = (p.to(torch.float32) - lr * delta).to(p.dtype)
-        return newp, m, v
+        return (p.copy_(newp) if donate else newp), m, v
 
     out = _map(upd, params, grads, state["m"], state["v"])
     new_state = {"m": _pick(out, 1), "v": _pick(out, 2), "step": step}
     return _pick(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _like(g, m):
+    """A DTensor gradient on its moment's placements (autograd may hand it
+    back on others, e.g. a pending sum), so that the in-place update keeps
+    the moment's layout; any other gradient as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and isinstance(m, DTensor) \
+            and tuple(g.placements) != tuple(m.placements):
+        return g.redistribute(m.device_mesh, m.placements)
+    return g

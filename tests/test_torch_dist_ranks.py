@@ -26,17 +26,20 @@ Checks, with the reference's own bounds (``tests/test_dist.py``):
   (each pod's rounding error is at most half its scale), plus 1e-6 for
   summation order (the reference's own bound between flat and hier);
 * ``seq_sharded_attention`` on a (2, 4) ``("data", "model")`` mesh at
-  (offset, window) = (40, None), (63, 16), (0, None): within 1e-5 of
-  ``attention_ref`` and of the reference's output;
+  (offset, window) = (40, None), (63, 16), (0, None), each rank handed
+  its chunk of the cache (its batch row, 16 of the 64 rows): within 1e-5
+  of ``attention_ref`` and of the reference's output;
 * on a (2, 2, 2) mesh, the reference test's MoE model: every spec as long
   as its parameter, no axis used twice, equal to the reference's without
   the stacked leading entry; after ``ft.trainer.reshard`` and after
   ``CheckpointManager.restore(shardings=...)`` each rank's local shard
   equals the slice that the reference's ``devices_indices_map`` gives the
   device at the same mesh coordinate, bit for bit;
-* a ``seq_shard`` smoke model's ``decode_step`` under the (2, 4) mesh
-  equals the one without a mesh (float32 compute): logits within 1e-5,
-  the same greedy tokens; and with its caches stored sharded by sequence
+* a ``seq_shard`` smoke model's ``decode_step`` under the (2, 4) mesh,
+  the no-mesh prefill's caches placed with ``sharding.shard_cache`` (each
+  rank its chunk), equals the one without a mesh (float32 compute):
+  logits within 1e-5, the same greedy tokens; and with its caches stored
+  sharded by sequence
   (DTensors on ``cache_specs(seq_shard=True)``: each rank a 16-row chunk
   on a ring of 4, the new row written on its owning rank) it equals the
   whole-cache run within 1e-4 (its sums split over ranks), the same
@@ -45,7 +48,12 @@ Checks, with the reference's own bounds (``tests/test_dist.py``):
   parameters and prompt on the (2, 4) mesh (the Mamba blocks on each
   rank's shards: batch over ``data``, heads over ``model``) against the
   same prefill without DTensors, float32 compute: logits within 1e-4
-  (sums split over ranks), the new SSM states within 1e-4.
+  (sums split over ranks), the new SSM states within 1e-4;
+* on the (2, 2, 2) mesh, a MoE block of DTensors (batch over ``pod`` x
+  ``data``, experts over ``model``) with a capacity factor of 0.5, so
+  that tokens drop, against the block without a mesh: outputs within
+  1e-5, the auxiliary loss within 1e-6 (routing, capacity and the loss
+  are the global batch's).
 
 Run alone: ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_dist_ranks.py`` (about 30 s, most of it the 8 ranks'
@@ -189,16 +197,21 @@ def _grads(ref_all, mesh) -> dict:
 
 
 def _attention(ref_all, mesh) -> dict:
-    from repro_torch.dist import context, decode_attn
+    from repro_torch.dist import context, decode_attn, sharding
     from repro_torch.kernels import ref as kref
     rng = np.random.default_rng(ref_all["seeds"]["attention"])
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                for s in ((2, 6, 1, 32), (2, 3, 64, 32), (2, 3, 64, 32)))
+    # this rank's chunk of the cache: its batch row, its 16 of the 64 rows
+    rows = sharding.batch_entry(mesh, 2)
+    i = mesh.coordinate()["model"]
+    kc, vc = (sharding.local_rows(mesh, t, rows).narrow(2, i * 16, 16)
+              for t in (k, v))
     out = {}
     for off, win in ATTN_CASES:
         with context.use_mesh(mesh):
             got = decode_attn.seq_sharded_attention(
-                q, k, v, causal=True, window=win, q_offset=off)
+                q, kc, vc, causal=True, window=win, q_offset=off, rows=rows)
         want = kref.attention_ref(q, k, v, causal=True, window=win,
                                   q_offset=off)
         out[f"{off}_{win}"] = {
@@ -295,7 +308,7 @@ def _paths_specs(tree, prefix=()):
 
 def _decode(mesh) -> dict:
     from repro_torch import configs
-    from repro_torch.dist import context
+    from repro_torch.dist import context, sharding
     from repro_torch.models import convert, smoke_config
     from repro_torch.models import model as M
     cfg = smoke_config(configs.get("h2o-danube-1.8b"), attn_impl="seq_shard")
@@ -309,7 +322,10 @@ def _decode(mesh) -> dict:
         logits, caches, _ = M.prefill(cfg, params, prompt, 64)
         runs = {}
         for name, mesh_or_none in (("mesh", mesh), ("none", None)):
-            log, c, pos, toks, steps = logits, caches, prompt.shape[1], [], []
+            log, pos, toks, steps = logits, prompt.shape[1], [], []
+            # the mesh run holds each rank's chunk of the cache only
+            c = sharding.shard_cache(caches, mesh) if mesh_or_none \
+                else caches
             for _ in range(3):
                 nxt = torch.argmax(log[:, -1], -1)[:, None]
                 toks.append(nxt)
@@ -424,6 +440,35 @@ def _mamba_sharded(mesh) -> dict:
     return out
 
 
+def _moe(mesh) -> dict:
+    """A MoE block on each rank's shards (batch over ``pod`` x ``data``,
+    experts over ``model``) against the block without a mesh, where
+    capacity binds."""
+    import dataclasses
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist import context
+    from repro_torch.models import layers as L
+    cfg = _moe_cfg()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p = L.materialize(L.moe_meta(cfg), torch.Generator().manual_seed(9),
+                      "cpu")
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (8, 16, cfg.d_model)).astype(np.float32))
+    want, want_aux = L.moe_block(cfg, p, x)
+    dm = mesh.device_mesh
+    pd = L.tree_map(lambda t: distribute_tensor(t, dm, [Replicate()] * 3),
+                    p)
+    xd = distribute_tensor(x, dm, [Shard(0), Shard(0), Replicate()])
+    with context.use_mesh(mesh), implicit_replication():
+        got, aux = L.moe_block(cfg, pd, xd)
+        got, aux = got.full_tensor(), aux.full_tensor()
+    return {"dropped": L.moe_dropped(cfg, p, x),
+            "out_err": float((got - want).abs().max()),
+            "aux_err": abs(float(aux) - float(want_aux))}
+
+
 def _rank(rank: int, init: str, tmp: str, out_path: str) -> None:
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_mod
@@ -449,7 +494,8 @@ def _rank(rank: int, init: str, tmp: str, out_path: str) -> None:
         "placements": _placements(ref, pdm, os.path.join(tmp, "ckpt")),
         "decode": _decode(dm),
         "decode_sharded": _decode_sharded(dm),
-        "mamba_sharded": _mamba_sharded(dm)}
+        "mamba_sharded": _mamba_sharded(dm),
+        "moe": _moe(pdm)}
     reports = [None] * WORLD
     dist.all_gather_object(reports, report)
     if rank == 0:
@@ -603,3 +649,17 @@ def test_mamba_blocks_on_shards_equal_plain_blocks(reports, arch):
         d = r["mamba_sharded"][arch]
         assert d["logit_err"] < 1e-4, d
         assert d["state_err"] < 1e-4, d
+
+
+def test_moe_on_shards_routes_the_global_batch(reports):
+    """Capacity binds (pairs were dropped), and the block on each rank's
+    rows routes, fills capacity and takes the auxiliary loss as the
+    block on the whole batch does: the capacity from the global token
+    count, each pair's slot its place in the global token order, the
+    loss from the global means.  Limit 1e-5 on outputs of about 3:
+    float32 sums over other row blocks; 1e-6 on the loss."""
+    for r in reports:
+        d = r["moe"]
+        assert d["dropped"] > 0, d
+        assert d["out_err"] < 1e-5, d
+        assert d["aux_err"] < 1e-6, d
