@@ -2737,7 +2737,8 @@ def dist_gradients(cfg, params, batch, mesh) -> None:
     """Phase 20's gradients: the no-mesh value and gradient, then each
     schedule held to it and timed."""
     import functools
-    from repro_torch.dist import compression, context, data_parallel
+    from repro_torch.dist import collectives, compression, context
+    from repro_torch.dist import data_parallel
     from repro_torch.launch import steps
     from repro_torch.models import model as M
     lf = functools.partial(M.loss_fn, cfg)
@@ -2749,7 +2750,10 @@ def dist_gradients(cfg, params, batch, mesh) -> None:
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     leaves = M.L.tree_leaves(want)
-    scales = [float(compression.quantize(w)[1]) for w in leaves]
+    # int8: one scale per reference leaf, a stage's repeats stacked as the
+    # pod hop sends them
+    stacked = M.L.tree_leaves(collectives.stack_repeats(want))
+    scales = [float(compression.quantize(w)[1]) for w in stacked]
     del want
     rows = {}
     for name, kw in (("flat", dict(schedule="flat")),
@@ -2762,7 +2766,9 @@ def dist_gradients(cfg, params, batch, mesh) -> None:
             got = M.L.tree_leaves(grads)
             if name == "hier+int8":
                 excess = max(float((g - w).abs().max()) / s
-                             for g, w, s in zip(got, leaves, scales))
+                             for g, w, s in zip(M.L.tree_leaves(
+                                 collectives.stack_repeats(grads)),
+                                 stacked, scales))
                 assert excess <= INT8_STEP_SHARE, (name, excess)
                 equal = f"max |int8 - exact| {excess:.4f} of a step"
             else:

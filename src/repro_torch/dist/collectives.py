@@ -109,3 +109,30 @@ def hierarchical_psum_tree(tree, axes: tuple[str, ...] = ("pod", "data"), *,
     """``hierarchical_psum`` over every leaf of a tree."""
     from repro_torch.models.layers import tree_map
     return tree_map(lambda t: hierarchical_psum(t, axes, mesh=mesh), tree)
+
+
+def stack_repeats(tree):
+    """``tree`` in the reference's layout: each stage's repeats (a list of
+    unit dicts) stacked leaf by leaf on a leading axis (a copy)."""
+    from repro_torch.models.layers import tree_map
+    if isinstance(tree, dict):
+        return {k: stack_repeats(v) for k, v in tree.items()}
+    if isinstance(tree, list) and tree and isinstance(tree[0], dict):
+        return tree_map(lambda *ts: torch.stack(ts), *tree)
+    if isinstance(tree, list):
+        return [stack_repeats(v) for v in tree]
+    return tree
+
+
+def unstack_repeats(stacked, like):
+    """The inverse of ``stack_repeats``: ``stacked`` in the layout of
+    ``like`` (each repeat a view of its stacked leaves)."""
+    from repro_torch.models.layers import tree_map
+    if isinstance(like, dict):
+        return {k: unstack_repeats(stacked[k], v) for k, v in like.items()}
+    if isinstance(like, list) and like and isinstance(like[0], dict):
+        return [tree_map(lambda t, r=r: t[r], stacked)
+                for r in range(len(like))]
+    if isinstance(like, list):
+        return [unstack_repeats(s, v) for s, v in zip(stacked, like)]
+    return stacked

@@ -69,12 +69,17 @@ def make_dp_grad_fn(loss_fn: Callable, mesh, *, schedule: str = "flat",
 
     def reduce_grads(g):
         if compress:
-            # exact psum on the fast inner axes, int8 on the pod hop
+            # exact psum on the fast inner axes, int8 on the pod hop; a
+            # stage's repeats stacked, as the reference keeps them, so the
+            # pod hop sends one scale per reference leaf
+            s = collectives.stack_repeats(g)
             if inner:
-                g = tree_map(lambda t: collectives.psum(
-                    t, mesh.group(inner)), g)
-            g = tree_map(lambda t: compression.compressed_psum(
-                t, mesh.group(outer)).to(t.dtype), g)
+                s = tree_map(lambda t: collectives.psum(
+                    t, mesh.group(inner)), s)
+            s = tree_map(lambda t: compression.compressed_psum(
+                t, mesh.group(outer)), s)
+            g = tree_map(lambda t, r: r.to(t.dtype), g,
+                         collectives.unstack_repeats(s, g))
         elif schedule == "hier" and inner:
             g = collectives.hierarchical_psum_tree(g, dp_axes, mesh=mesh)
         else:

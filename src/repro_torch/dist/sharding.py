@@ -312,6 +312,166 @@ def param_shardings(cfg, mesh, rules: Optional[dict] = None) -> Any:
         m.axes, mesh, shape=m.shape, rules=rules)), M.model_meta(cfg))
 
 
+# ---------------------------------------------------------------------------
+# The blocks' spec tables: what each rank holds in a block's local region
+# ---------------------------------------------------------------------------
+# Under a live mesh the model runs each block on the ranks' shards
+# (``local_region``, the reference's partitioner's choices made by hand).
+# The tables below say, per block, which dimensions of its inputs and
+# outputs split over which mesh axes; ``models.layers`` and
+# ``models.model`` run the bodies.  A spec given with a shape is fitted
+# (``fit_spec``); the others are fitted where they are used.
+def model_size(mesh) -> int:
+    """Ranks on the ``model`` axis (1 when the mesh has none)."""
+    return int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
+
+
+def model_split(mesh, n: int):
+    """``"model"`` when a dimension of ``n`` splits over more than one
+    ``model`` rank, else None."""
+    m = model_size(mesh)
+    return "model" if m > 1 and n % m == 0 else None
+
+
+def mlp_specs(cfg, mesh, shape, d_ff: Optional[int] = None) -> dict:
+    """The MLP (``layers._mlp_sharded``; the MoE's shared expert with its
+    ``d_ff``), Megatron-style: the hidden width over ``model`` where it
+    divides (the first products' columns, the last one's rows), the
+    output a pending sum over ``model``; the batch (the rows of ``shape``,
+    the activations') over the batch axes."""
+    fm = model_split(mesh, d_ff or cfg.d_ff)
+    return {"rows": fit_spec(P(batch_axes(mesh), None, None), shape, mesh),
+            "partial": ("model",) if fm else (),
+            "weights": {"wg": P(None, fm), "wu": P(None, fm),
+                        "wd": P(fm, None), "w1": P(None, fm), "b1": P(fm),
+                        "w2": P(fm, None)}}
+
+
+def attn_specs(cfg, mesh, seq: int, *, ring: bool) -> dict:
+    """The attention block (``layers._attn_sharded``), in one of four
+    modes over ``model`` (m ranks):
+
+    * ``heads``: the query heads split over ``model`` where they divide
+      (the K/V heads too where those divide, else each rank computes all
+      and reads the ones its query heads share), the output projection's
+      rows with them, so the block's output is a pending sum over
+      ``model`` (the reduction the residual's layout resolves);
+    * ``ring`` (``ring``: decode against a cache stored sharded by
+      sequence, ``attn_impl="seq_shard"``): every rank the whole
+      (one-row) projection, its own chunk of the cache, the chunks round
+      the ring;
+    * ``seq``: where the heads do not divide, the ``seq`` query rows
+      split over ``model`` (each rank all K/V rows and heads, every key
+      read under the mask, so every rank does the same work);
+    * ``replicated``: neither divides (one-row decode): every rank the
+      whole block.
+    The batch splits over the batch axes throughout.  Returns the mode,
+    the K/V heads' entry, the weights', queries', keys' and cache's
+    specs and the output's pending sums."""
+    m = model_size(mesh)
+    b = batch_axes(mesh)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if m == 1:
+        mode = "replicated"
+    elif ring:
+        mode = "ring"
+    elif hq % m == 0 and (hkv % m == 0 or m % hkv == 0):
+        mode = "heads"
+    elif seq % m == 0 and seq > 1:
+        mode = "seq"
+    else:
+        mode = "replicated"
+    heads = "model" if mode == "heads" else None
+    kv = heads if hkv % m == 0 else None
+    return {"mode": mode, "kv_split": kv,
+            "weights": {"wq": P(None, heads, None), "bq": P(heads, None),
+                        "wk": P(None, kv, None), "bk": P(kv, None),
+                        "wv": P(None, kv, None), "bv": P(kv, None),
+                        "wo": P(heads, None, None)},
+            "q": P(b, "model" if mode == "seq" else None, None),
+            "kv": P(b, None, None),
+            "cache": P(b, kv, "model" if mode == "ring" else None, None),
+            "partial": ("model",) if mode == "heads" else ()}
+
+
+def moe_specs(cfg, mesh, shape) -> dict:
+    """The MoE block (``layers._moe_sharded``): the experts over ``model``
+    where they divide (expert parallelism; the routed output a pending
+    sum over ``model``), the router whole on every rank, the batch (the
+    rows of ``shape``) over the batch axes; the shared expert as an MLP
+    of ``d_ff_expert`` (``mlp_specs``)."""
+    em = model_split(mesh, cfg.moe.n_experts)
+    return {"rows": fit_spec(P(batch_axes(mesh), None, None), shape, mesh),
+            "experts": em, "router": P(None, None),
+            "expert": P(em, None, None),
+            "partial": ("model",) if em else (),
+            "shared": mlp_specs(cfg, mesh, shape, cfg.moe.d_ff_expert)}
+
+
+def mamba_specs(cfg, mesh) -> dict:
+    """The Mamba block (``layers._mamba_sharded`` and
+    ``_mamba_out_sharded``): batch over the batch axes, the heads (and
+    ``d_inner`` with them) over ``model`` where they divide and there is
+    one group of B and C (a rank's heads read their own group; every
+    configuration of the zoo has one); B and C whole on every rank; the
+    output projection's rows of ``d_inner`` split with the heads, its
+    product a pending sum."""
+    b = batch_axes(mesh)
+    hm = model_split(mesh, cfg.n_ssm_heads) if cfg.ssm.n_groups == 1 \
+        else None
+    rows, inner = P(b, None, None), P(b, None, hm)
+    col, whole, split = P(None, hm), P(None, None), P(hm)
+    return {"rows": rows, "inner": inner,
+            "weights": {"wz": col, "wx": col, "wb": whole, "wc": whole,
+                        "wdt": col, "dt_bias": split,
+                        "conv_x": P(hm, None), "conv_b": whole,
+                        "conv_c": whole, "a_log": split, "d_skip": split},
+            "cache": {"conv_x": inner, "conv_b": rows, "conv_c": rows,
+                      "ssm": P(b, hm, None, None)},
+            "wo": P(hm, None), "partial": ("model",) if hm else ()}
+
+
+def vocab_split(x, dim: int, mesh) -> bool:
+    """Whether the DTensor ``x``'s dimension ``dim`` (a vocabulary) is
+    split over a ``model`` axis of more than one rank, as ``fit_spec``
+    splits a vocabulary that divides: then the embedding and the loss
+    run on each rank's slice of it (``embed_specs``, ``loss_specs``)."""
+    from torch.distributed.tensor import Shard
+    if model_size(mesh) == 1:
+        return False
+    pl = x.placements[mesh.axis_names.index("model")]
+    return isinstance(pl, Shard) and pl.dim == dim
+
+
+def embed_specs(mesh, tokens) -> dict:
+    """The vocab-parallel embedding (``models.model._embed``): the table's
+    rows (the vocabulary) over ``model``, each rank looking up the tokens
+    of its range; the tokens (a DTensor's rows over the batch axes, a
+    plain tensor whole) and the output alike, the output a pending sum
+    over ``model``."""
+    from torch.distributed.tensor import DTensor
+    rows = fit_spec(P(batch_axes(mesh), None), tuple(tokens.shape), mesh) \
+        if isinstance(tokens, DTensor) else None
+    return {"tokens": rows, "table": P("model", None),
+            "out": P(*(rows or (None, None)), None), "partial": ("model",)}
+
+
+def loss_specs(mesh, shape, split: bool) -> dict:
+    """The loss's region over the hidden states of ``shape`` (B, S, d)
+    (``models.model._nll``).  ``split`` (``vocab_split``): each rank its
+    slice of the unembedding's columns, the positions over the batch
+    axes only, so the hidden state whole along the sequence (gathered
+    over ``model``); the statistics combine over ``model``.  Else the
+    unembedding whole on every rank, the positions over the batch axes
+    and ``model``.  The labels and the per-position output split as the
+    positions."""
+    b = batch_axes(mesh)
+    model = None if split or "model" not in mesh.axis_names else "model"
+    rows = fit_spec(P(b, model, None), shape, mesh)
+    return {"hidden": rows, "w": P(None, "model" if split else None),
+            "labels": P(*rows[:2]), "out": P(*rows[:2])}
+
+
 def cache_specs(cfg, mesh, batch: int, seq_len: int, *,
                 seq_shard: bool = False) -> Any:
     """Spec tree mirroring ``models.init_cache`` (one unit cache per

@@ -21,8 +21,8 @@ The checks:
   at full depth, float32 compute, each rank a quarter of the rows), held
   to the gloo tests' bounds: ``flat`` and ``hier`` within 1e-6 of each
   other and 1e-4 of the no-mesh gradient per element, the losses within
-  1e-5 relative; int8 within half the pods' summed scales over the
-  ranks, plus 1e-6;
+  1e-5 relative; int8 within half the pods' summed scales (one per
+  reference leaf, a stage's repeats stacked) over the ranks, plus 1e-6;
 * ``ring_decode``: the ``seq_shard`` ring over a ``model`` axis of 4 at
   h2o-danube-1.8b's width: ``seq_sharded_attention`` on each rank's
   chunk of a cache within 1e-4 of ``kernels.ref.attention_ref`` on the
@@ -39,6 +39,14 @@ The checks:
   shardings=)`` of h2o-danube-1.8b's parameters onto ``param_shardings``
   of a (2, 2) ``("data", "model")`` mesh, every local shard equal bit
   for bit to its slice of the whole leaf;
+* ``train_step``: ``launch.steps.make_case``'s training step on real
+  tensors on that mesh (h2o-danube-1.8b at 4 layers, its vocabulary
+  split over ``model``, float32 compute, 8 x 512 tokens; the smoke
+  config, 8 x 16, on the CPU) against the same step with no mesh on
+  one card: the loss within 1e-5 relative, every gradient leaf within
+  1e-5 of its own largest magnitude plus 1e-7, and within 1e-4 per
+  element; and no collective in its census has an operand of the whole
+  vocabulary's V x d elements;
 * ``census``: the dry run's census of real steps on that mesh (qwen2-7b
   ``decode_32k`` and mamba2-1.3b ``train_4k``, the batch cut to 4 on
   the cards), its collective bytes by kind equal on every rank and equal
@@ -124,6 +132,22 @@ def _max_err(a, b) -> float:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+def leaf_errors(got, want, path: str = "") -> list:
+    """Leaf by leaf of ``want`` (``got`` the same tree, its leaves tensors
+    or DTensors): ``[path, max |got - want|, max |want|]``, so that each
+    error is read against its own leaf's scale."""
+    if isinstance(want, dict):
+        return [e for k in want
+                for e in leaf_errors(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        return [e for i, (g, w) in enumerate(zip(got, want))
+                for e in leaf_errors(g, w, f"{path}/{i}")]
+    g = got.full_tensor() if hasattr(got, "full_tensor") else got
+    want = want.float()
+    return [[path, float((g.float() - want).abs().max()),
+             float(want.abs().max())]]
+
+
 def check_dp_grads(device: str, size: dict) -> dict:
     from repro_torch.dist import (collectives, compression, data_parallel,
                                   sharding)
@@ -158,19 +182,22 @@ def check_dp_grads(device: str, size: dict) -> dict:
         local = tree_map(lambda t: sharding.local_rows(
             mesh, t, ("pod", "data")), batch)
         _, g = data_parallel.value_and_grad(lf)(params, local)
+        # one scale per reference leaf (a stage's repeats stacked), as
+        # the pod hop sends them
         scales = tree_map(lambda t: collectives.all_gather(
             compression.quantize(collectives.psum(
                 t, mesh.group("data")))[1].reshape(1), mesh.group("pod")),
-            g)
+            collectives.stack_repeats(g))
     flat, hier, int8 = (runs[k][1] for k in ("flat", "hier", "int8"))
     out["flat_vs_hier"] = _max_err(flat, hier)
     out["flat_vs_no_mesh"] = _max_err(flat, want)
     out["hier_vs_no_mesh"] = _max_err(hier, want)
     out["loss_rel"] = max(abs(float(runs[k][0]) - float(want_loss))
                           / abs(float(want_loss)) for k in runs)
+    stack = collectives.stack_repeats
     out["int8_excess"] = max(
         float(((a - b).abs() - (s.sum() / 2 / WORLD + 1e-6)).max())
-        for a, b, s in zip(tree_leaves(int8), tree_leaves(flat),
+        for a, b, s in zip(tree_leaves(stack(int8)), tree_leaves(stack(flat)),
                            tree_leaves(scales)))
     out["seconds"] = secs
     out["ok"] = (out["flat_vs_hier"] < 1e-6 and out["flat_vs_no_mesh"] < 1e-4
@@ -349,6 +376,75 @@ def check_reshard(device: str, size: dict) -> dict:
     return out
 
 
+def check_train_step(device: str, size: dict) -> dict:
+    import math
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist import context, sharding
+    from repro_torch.launch import census, shapes, steps
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    mesh = mesh_mod.make_dev_mesh((2, 2), ("data", "model"), device=device)
+    cfg = _config("h2o-danube-1.8b", device, layers=size["layers"])
+    cell = dataclasses.replace(shapes.make_cell("h2o-danube-1.8b",
+                                                "train_4k"),
+                               global_batch=size["grad_rows"],
+                               seq_len=size["grad_seq"])
+    seqs = torch.randint(0, cfg.vocab, (cell.global_batch, cell.seq_len + 1),
+                         generator=_generator(device, 10), device=device)
+    batch = {"tokens": seqs[:, :-1].to(torch.int32),
+             "labels": seqs[:, 1:].to(torch.int32)}
+    out: dict = {}
+    with _float32():
+        case = steps.make_case(cfg, cell, mesh, device=device,
+                               fill=steps._zeros)
+        # the step the case wraps, asked to keep its gradients
+        step = steps.make_train_step(
+            case.cfg, AdamWConfig(),
+            accum_steps=steps.accum_for(case.cfg, cell), keep_grads=True)
+        # the step owns (writes into) its parameters: each run its own
+        params = M.init_params(case.cfg, _generator(device, 9), device)
+        _sync(device)
+        t0 = time.perf_counter()
+        _, _, want = step(params, adamw_init(params), batch)
+        _sync(device)
+        out["seconds_no_mesh"] = time.perf_counter() - t0
+        del params
+        placed = tree_map(sharding.place, M.init_params(
+            case.cfg, _generator(device, 9), device),
+            sharding.param_shardings(case.cfg, mesh))
+        placed_batch = {k: sharding.place(v, ns) for (k, v), ns in zip(
+            batch.items(), steps._batch_shardings(mesh, batch).values())}
+        _sync(device)
+        t0 = time.perf_counter()
+        with context.use_mesh(mesh), implicit_replication(), \
+                census.Census() as c:
+            _, _, got = step(placed, case.args[1], placed_batch)
+        _sync(device)
+        out["seconds_mesh"] = time.perf_counter() - t0
+        loss = float(got["loss"].full_tensor())
+        errs = leaf_errors(got["grads"], want["grads"])
+    whole = cfg.vocab * cfg.d_model
+    out.update(
+        loss=loss, loss_rel=abs(loss - float(want["loss"]))
+        / abs(float(want["loss"])), max_grad_err=max(e[1] for e in errs),
+        leaves=len(errs), grad_errs=errs,
+        embed_local_shape=list(placed["embed"].to_local().shape),
+        whole_vocab_ops=[op for op in c.ops
+                         if math.prod(op["shape"]) == whole],
+        collective_bytes=c.collectives()["bytes_by_kind"])
+    out["ok"] = (out["loss_rel"] < 1e-5
+                 and all(err <= 1e-5 * scale + 1e-7 and err < 1e-4
+                         for _, err, scale in errs)
+                 and not out["whole_vocab_ops"]
+                 and out["embed_local_shape"][0] == cfg.vocab // 2)
+    out["config"] = f"{cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, " \
+        f"vocab {cfg.vocab}), {cell.global_batch} x {cell.seq_len} " \
+        f"tokens, float32 compute, (2, 2) data x model"
+    return out
+
+
 def _census_cell(arch: str, shape: str, device: str, size: dict):
     from repro_torch.launch import shapes
     cfg = _config(arch, device)
@@ -405,7 +501,8 @@ def census_fake(device: str, size: dict) -> dict:
 
 
 CHECKS = (("dp_grads", check_dp_grads), ("ring_decode", check_ring_decode),
-          ("moe", check_moe), ("reshard", check_reshard))
+          ("moe", check_moe), ("reshard", check_reshard),
+          ("train_step", check_train_step))
 
 
 def _emit(line: dict, out_path) -> None:

@@ -163,20 +163,18 @@ def loss_embed_probe(cfg: ModelConfig, cell: shp.Cell, mesh, *,
 def loss_chunk_probe(cfg: ModelConfig, cell: shp.Cell, mesh, *,
                      device: str = "cuda") -> dict:
     """Forward and backward of one vocab chunk of the loss (the unembed
-    product and its statistics) for one microbatch."""
+    product and its statistics, on each rank's slice of the chunk where
+    the vocabulary splits over ``model``) for one microbatch."""
     b, s, d = cell.global_batch, cell.seq_len, cfg.d_model
-    vc = min(cfg.vocab, max(16384, -(-cfg.vocab // 16)))
+    vc = M._vocab_chunk(cfg)
     meta = {"unembed": L.ParamMeta((d, vc), ("embed", "vocab"))}
     p = _params(meta, mesh, device, False, True)
     h = _activation((b, s, d), L.act_spec(cfg, mesh), mesh, device, True)
     labels = steps.placed_batch(cfg, cell, mesh, device)["labels"]
 
     def run():
-        m_c, s_c, g_c = M._chunk_stats_sharded(
-            cfg, h, M.gathered(p["unembed"]), labels, 0)
-        _grad_of([m_c, s_c, g_c], [h, p["unembed"]],
-                 [torch.ones_like(m_c), torch.ones_like(s_c),
-                  torch.ones_like(g_c)])
+        nll = M._nll(cfg, h, M.gathered(p["unembed"]), labels)
+        _grad_of(nll, [h, p["unembed"]], torch.ones_like(nll))
     return _run(run, mesh)
 
 

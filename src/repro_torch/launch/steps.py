@@ -65,7 +65,7 @@ def _micro(t, i: int, accum: int):
 
 
 def make_train_step(cfg: mcfg.ModelConfig, ocfg: AdamWConfig,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, keep_grads: bool = False):
     """Train step with gradient accumulation: the global batch is split
     into ``accum_steps`` microbatches whose gradients add up in a float32
     accumulator — activation memory scales with the microbatch while the
@@ -76,7 +76,9 @@ def make_train_step(cfg: mcfg.ModelConfig, ocfg: AdamWConfig,
     step owns ``params`` and ``opt_state`` (the reference's training case
     donates both): AdamW writes into their tensors, which come back
     (``adamw_update(donate=True)``, bit-equal to the functional form).  A
-    caller that keeps the old values passes a copy."""
+    caller that keeps the old values passes a copy.  ``keep_grads``: the
+    metrics also hold the step's gradients (``"grads"``, the parameters'
+    tree), for checks that hold them to another step's."""
     if cfg.attn_impl != "torch":
         raise ValueError(
             f"{cfg.name}: training runs the plain routes (the CUDA kernels "
@@ -103,6 +105,8 @@ def make_train_step(cfg: mcfg.ModelConfig, ocfg: AdamWConfig,
                 (), dtype=torch.float32, device=loss.device)}
         params, opt_state, om = adamw_update(ocfg, params, grads, opt_state,
                                              donate=True)
+        if keep_grads:
+            om["grads"] = grads
         return params, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step

@@ -265,18 +265,11 @@ def _mlp(cfg: ModelConfig, p, y):
 
 
 def _mlp_sharded(cfg: ModelConfig, p, y, mesh):
-    """``_mlp`` on each rank's shards, Megatron-style: the hidden width
-    over ``model`` where it divides (the first products' columns, the last
-    one's rows), the output a pending sum over ``model``; the batch over
-    the batch axes.  (The second bias joins once, outside the sum.)"""
+    """``_mlp`` on each rank's shards as ``sharding.mlp_specs`` splits
+    them.  (The second bias joins once, outside the pending sum.)"""
     from repro_torch.dist import sharding as shd
-    m = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
-    b = shd.batch_axes(mesh)
-    fm = "model" if m > 1 and cfg.d_ff % m == 0 else None
-    rows = shd.fit_spec(shd.P(b, None, None), tuple(y.shape), mesh)
-    specs = {"wg": shd.P(None, fm), "wu": shd.P(None, fm),
-             "wd": shd.P(fm, None), "w1": shd.P(None, fm), "b1": shd.P(fm),
-             "w2": shd.P(fm, None)}
+    t = shd.mlp_specs(cfg, mesh, tuple(y.shape))
+    specs = t["weights"]
     keys = sorted(k for k in p if k in specs)
 
     def body(yy, *ws):
@@ -287,8 +280,8 @@ def _mlp_sharded(cfg: ModelConfig, p, y, mesh):
         return (h @ lp["w2"],)
 
     (out,) = shd.local_region(
-        mesh, body, [(y, rows)] + [(p[k], specs[k]) for k in keys], [rows],
-        partial=((("model",) if fm else ()),))
+        mesh, body, [(y, t["rows"])] + [(p[k], specs[k]) for k in keys],
+        [t["rows"]], partial=(t["partial"],))
     return out if cfg.act == "swiglu" else out + p["b2"]
 
 
@@ -491,70 +484,35 @@ def attn_block(cfg: ModelConfig, p, x, *, causal=True, window=None,
 
 
 def _attn_sharded(cfg: ModelConfig, p, y, mesh, **kw):
-    """``_attention`` on each rank's shards (``sharding.local_region``),
-    Megatron-style over ``model`` (m ranks):
-
-    * ``heads``: the query heads split over ``model`` where they divide
-      (the K/V heads too where those divide, else each rank computes all
-      and reads the ones its query heads share), the output projection's
-      rows with them, so the block's output is a pending sum over
-      ``model`` (the reduction the residual's layout resolves);
-    * ``ring``: decode against a cache stored sharded by sequence
-      (``attn_impl="seq_shard"``): every rank the whole (one-row)
-      projection, its own chunk of the cache, the chunks round the ring;
-    * ``seq``: where the heads do not divide, the query rows split over
-      ``model`` (each rank all K/V rows and heads, every key read under
-      the mask, so every rank does the same work);
-    * ``replicated``: neither divides (one-row decode): every rank the
-      whole block.
-    The batch splits over the batch axes throughout."""
+    """``_attention`` on each rank's shards (``sharding.local_region``) in
+    the mode that ``sharding.attn_specs`` picks (``heads``, ``ring``,
+    ``seq`` or ``replicated``), with the ``_Layout`` of the rank's shard
+    in that mode."""
     from repro_torch.dist import sharding as shd
     cache, cross = kw["cache"], kw["cross"]
-    names = mesh.axis_names
-    m = int(mesh.shape["model"]) if "model" in names else 1
-    b = shd.batch_axes(mesh)
+    m = shd.model_size(mesh)
     hq, hkv, s = cfg.n_heads, cfg.n_kv_heads, y.shape[1]
     c = mesh.coordinate()["model"] if m > 1 else 0
-    if m == 1:
-        mode = "replicated"
-    elif cfg.attn_impl == "seq_shard" and cache is not None and not cross:
-        mode = "ring"
-    elif hq % m == 0 and (hkv % m == 0 or m % hkv == 0):
-        mode = "heads"
-    elif s % m == 0 and s > 1:
-        mode = "seq"
-    else:
-        mode = "replicated"
-    heads = "model" if mode == "heads" else None
-    kv_split = heads if hkv % m == 0 else None
+    t = shd.attn_specs(cfg, mesh, s, ring=cfg.attn_impl == "seq_shard"
+                       and cache is not None and not cross)
+    mode = t["mode"]
     lay = _Layout()
-    if mode == "heads" and kv_split is None:
+    if mode == "heads" and t["kv_split"] is None:
         group, hq_l = hq // hkv, hq // m
         lay = _Layout(kv=slice(c * hq_l // group,
                                (c * hq_l + hq_l - 1) // group + 1))
     elif mode == "seq":
         lay = _Layout(row0=c * (s // m))
-    cache_seq = "model" if mode == "ring" else None
-    if mode == "ring":
+    elif mode == "ring":
         total = cache["k"].shape[2]
         lay = _Layout(chunk=(total, c * (total // m)))
 
-    def fit(spec, t):
-        return shd.fit_spec(spec, tuple(t.shape), mesh)
+    def fit(spec, x):
+        return shd.fit_spec(spec, tuple(x.shape), mesh)
 
-    def tree_specs(tree, spec_of):
-        return None if tree is None else {k: spec_of(v)
-                                          for k, v in tree.items()}
-
-    w_specs = {"wq": shd.P(None, heads, None), "bq": shd.P(heads, None),
-               "wk": shd.P(None, kv_split, None),
-               "bk": shd.P(kv_split, None),
-               "wv": shd.P(None, kv_split, None),
-               "bv": shd.P(kv_split, None), "wo": shd.P(heads, None, None)}
+    w_specs = t["weights"]
     pw = {k: v for k, v in p.items() if k in w_specs}
-    y_q = shd.P(b, "model" if mode == "seq" else None, None)
-    y_kv = shd.P(b, None, None)
-    c_spec = shd.P(b, kv_split, cache_seq, None)
+    y_q, y_kv, c_spec = t["q"], t["kv"], t["cache"]
     inputs = [(y, fit(y_q, y)), (y, fit(y_kv, y)),
               (kw["memory"], None if kw["memory"] is None
                else fit(y_kv, kw["memory"]))]
@@ -573,7 +531,7 @@ def _attn_sharded(cfg: ModelConfig, p, y, mesh, **kw):
         return (out,) + tuple(nc[k] for k in c_keys) if nc else (out,)
 
     c_specs = [fit(c_spec, cache[k]) for k in c_keys]
-    pend = ((("model",) if mode == "heads" else ()),) + ((),) * len(c_keys)
+    pend = (t["partial"],) + ((),) * len(c_keys)
     outs = shd.local_region(mesh, body, inputs, [out_spec] + c_specs,
                             partial=pend)
     new_cache = dict(zip(c_keys, outs[1:])) if cache is not None else None
@@ -752,36 +710,30 @@ def _moe_sharded(cfg: ModelConfig, p, y, mesh):
     returns (routed output, shared expert's output or None, aux)."""
     from repro_torch.dist import sharding as shd
     e = cfg.moe
-    m = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
-    b = shd.batch_axes(mesh)
-    em = "model" if m > 1 and e.n_experts % m == 0 else None
-    e0 = mesh.coordinate()["model"] * (e.n_experts // m) if em else 0
-
-    def fit(spec, t):
-        return shd.fit_spec(spec, tuple(t.shape), mesh)
-    rows = fit(shd.P(b, None, None), y)
+    t = shd.moe_specs(cfg, mesh, tuple(y.shape))
+    e0 = mesh.coordinate()["model"] * (e.n_experts // shd.model_size(mesh)) \
+        if t["experts"] else 0
+    rows = t["rows"]
     split = shd.entry_axes(rows[0])
     shards = (mesh.group(split), mesh.index(split),
               math.prod(int(mesh.shape[a]) for a in split)) if split \
         else None
-    w = shd.P(em, None, None)
+    w = t["expert"]
     routed, aux = shd.local_region(
         mesh, lambda yy, r, wg, wu, wd: _moe_routed(
             cfg, {"router": r, "wg": wg, "wu": wu, "wd": wd}, yy, e0,
             shards),
-        [(y, rows), (p["router"], shd.P(None, None)), (p["wg"], w),
+        [(y, rows), (p["router"], t["router"]), (p["wg"], w),
          (p["wu"], w), (p["wd"], w)],
-        [rows, shd.P()], partial=((("model",) if em else ()), ()))
+        [rows, shd.P()], partial=(t["partial"], ()))
     if not e.shared_expert:
         return routed, None, aux
-    sp = p["shared"]
-    fm = "model" if m > 1 and sp["wg"].shape[1] % m == 0 else None
+    sp, st = p["shared"], t["shared"]
     (shared,) = shd.local_region(
         mesh, lambda yy, wg, wu, wd: (_shared_expert(
             {"wg": wg, "wu": wu, "wd": wd}, yy),),
-        [(y, rows), (sp["wg"], shd.P(None, fm)), (sp["wu"], shd.P(None, fm)),
-         (sp["wd"], shd.P(fm, None))],
-        [rows], partial=((("model",) if fm else ()),))
+        [(y, rows)] + [(sp[k], st["weights"][k]) for k in ("wg", "wu", "wd")],
+        [rows], partial=(st["partial"],))
     return routed, shared, aux
 
 
@@ -866,28 +818,19 @@ def _mamba_in(p, y):
     return y @ p["wz"], y @ p["wx"], y @ p["wb"], y @ p["wc"], dt
 
 
-def _mamba_heads(cfg: ModelConfig, mesh):
-    """``model`` when the SSM heads (and ``d_inner`` with them) split over
-    it: they divide, and there is one group of B and C (a rank's heads
-    read their own group; every configuration of the zoo has one)."""
-    m = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
-    return "model" if m > 1 and cfg.n_ssm_heads % m == 0 \
-        and cfg.ssm.n_groups == 1 else None
-
-
 def _mamba_out_sharded(cfg: ModelConfig, p, yflat, mesh):
-    """The output projection on each rank's shards: ``d_inner``'s rows of
-    ``wo`` as split with the heads, the product a pending sum."""
+    """The output projection on each rank's shards
+    (``sharding.mamba_specs``): ``d_inner``'s rows of ``wo`` as split with
+    the heads, the product a pending sum."""
     from repro_torch.dist import sharding as shd
-    b = shd.batch_axes(mesh)
-    hm = _mamba_heads(cfg, mesh)
+    t = shd.mamba_specs(cfg, mesh)
     bsz, s, _ = yflat.shape
-    inner = shd.fit_spec(shd.P(b, None, hm), tuple(yflat.shape), mesh)
-    rows = shd.fit_spec(shd.P(b, None, None), (bsz, s, cfg.d_model), mesh)
+    inner = shd.fit_spec(t["inner"], tuple(yflat.shape), mesh)
+    rows = shd.fit_spec(t["rows"], (bsz, s, cfg.d_model), mesh)
     (out,) = shd.local_region(
         mesh, lambda yf, wo: (yf @ wo.float(),),
-        [(yflat, inner), (p["wo"], shd.P(hm, None))], [rows],
-        partial=((("model",) if hm else ()),))
+        [(yflat, inner), (p["wo"], t["wo"])], [rows],
+        partial=(t["partial"],))
     return out
 
 
@@ -967,24 +910,16 @@ def _mamba_mixer(cfg: ModelConfig, p, xs, bs, cs, dt, cache,
 
 def _mamba_sharded(cfg: ModelConfig, p, y, cache, mesh,
                    fresh: bool = False, donate: bool = False):
-    """``_mamba_in`` and ``_mamba_mixer`` on each rank's shards: batch
-    over the batch axes, the heads (and ``d_inner`` with them) over
-    ``model`` where they divide; B and C (the groups) whole on every
-    rank.  Returns (z, the mixer's output, the new cache or None)."""
+    """``_mamba_in`` and ``_mamba_mixer`` on each rank's shards, as
+    ``sharding.mamba_specs`` splits them.  Returns (z, the mixer's
+    output, the new cache or None)."""
     from repro_torch.dist import sharding as shd
-    b = shd.batch_axes(mesh)
-    hm = _mamba_heads(cfg, mesh)
+    t = shd.mamba_specs(cfg, mesh)
 
     def fit(spec, shape):
         return shd.fit_spec(spec, tuple(shape), mesh)
-    rows, inner = shd.P(b, None, None), shd.P(b, None, hm)
-    col, whole, split = shd.P(None, hm), shd.P(None, None), shd.P(hm)
-    specs = {"wz": col, "wx": col, "wb": whole, "wc": whole, "wdt": col,
-             "dt_bias": split, "conv_x": shd.P(hm, None),
-             "conv_b": whole, "conv_c": whole, "a_log": split,
-             "d_skip": split}
-    c_specs = {"conv_x": inner, "conv_b": rows, "conv_c": rows,
-               "ssm": shd.P(b, hm, None, None)}
+    rows, inner = t["rows"], t["inner"]
+    specs, c_specs = t["weights"], t["cache"]
     keys = list(specs)
     c_keys = sorted(cache) if cache is not None else []
     inputs = [(y, fit(rows, y.shape))]

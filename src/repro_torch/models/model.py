@@ -273,6 +273,35 @@ def _encode(cfg: ModelConfig, params: Params, frames):
     return L.apply_norm(cfg, enc["final_norm"], x)
 
 
+def _embed(table, tokens):
+    """The tokens' rows of the embedding ``table`` (V, d), in the compute
+    dtype.  Under a live mesh where the table's vocabulary splits over
+    ``model`` (``sharding.vocab_split``), the vocab-parallel lookup
+    (``sharding.embed_specs``): each rank looks up the tokens in its
+    range of rows on its own slice, the others at row 0 and zeroed, and
+    the result is a pending sum over ``model`` (exact: one rank adds each
+    row, the rest zeros), so the backward scatters into the rank's slice
+    only."""
+    w = gathered(table)
+    mesh = L._dtensor_mesh(w)
+    from repro_torch.dist import sharding
+    if mesh is None or not sharding.vocab_split(w, 0, mesh):
+        return F.embedding(tokens, w).to(COMPUTE_DTYPE)
+    t = sharding.embed_specs(mesh, tokens)
+    rows = w.shape[0] // sharding.model_size(mesh)
+    v0 = mesh.coordinate()["model"] * rows
+
+    def body(tok, wl):
+        local = tok - v0
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(torch.where(mine, local, 0), wl)
+        return (torch.where(mine[..., None], x, 0).to(COMPUTE_DTYPE),)
+    (x,) = sharding.local_region(
+        mesh, body, [(tokens, t["tokens"]), (w, t["table"])], [t["out"]],
+        partial=(t["partial"],))
+    return x
+
+
 def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
             frames=None, img_embeds=None, positions=None,
             caches=None, pos=None, donate: bool = False):
@@ -289,8 +318,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, memory=None,
         memory = _encode(cfg, params, frames)
     if img_embeds is not None:
         memory = img_embeds
-    x = F.embedding(tokens, gathered(params["embed"])).to(COMPUTE_DTYPE)
-    x = L.constrain_btd(cfg, x)
+    x = L.constrain_btd(cfg, _embed(params["embed"], tokens))
     if positions is None:
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
     shared = params.get("shared_attn")
@@ -343,70 +371,133 @@ def _chunk_stats(cfg: ModelConfig, hidden, wc, labels, off: int):
     return m_c, s_c, gold_c
 
 
-def _chunk_stats_sharded(cfg: ModelConfig, hidden, wc, labels, off: int):
-    """``_chunk_stats`` on each rank's shards under a live mesh: the
-    positions split over the batch axes and ``model`` (the sequence), the
-    chunk's unembedding whole on every rank."""
-    from repro_torch.dist import context, sharding
-    mesh = L._dtensor_mesh(hidden)
-    b = sharding.batch_axes(mesh)
-    model = "model" if "model" in mesh.axis_names else None
-
-    def fit(spec, t):
-        return sharding.fit_spec(spec, tuple(t.shape), mesh)
-    rows = fit(sharding.P(b, model, None), hidden)
-    out = sharding.P(*rows[:2])
-    return sharding.local_region(
-        mesh, lambda h, w, y: _chunk_stats(cfg, h, w, y, off),
-        [(hidden, rows), (wc, sharding.P(None, None)), (labels, out)],
-        [out, out, out])
-
-
-def loss_fn(cfg: ModelConfig, params: Params, batch) -> tuple:
-    """Cross entropy over a vocab-chunked unembedding, combined with a
-    running logsumexp: never materializes (B, S, V).  When a gradient is
-    taken, each chunk's logits are recomputed in the backward
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` on
-    ``chunk_stats``).  Returns (loss, {"ce": ce, "aux": aux})."""
-    tokens = batch["tokens"]
-    labels = batch["labels"]
-    hidden, aux, _, _ = forward(
-        cfg, params, tokens,
-        frames=batch.get("frames"), img_embeds=batch.get("img_embeds"))
-    b, s, _ = hidden.shape
+def _vocab_chunk(cfg: ModelConfig) -> int:
+    """Columns of the unembedding per loss chunk (the reference's rule)."""
     v = cfg.vocab
-    vc = min(v, max(16384, -(-v // 16)))
-    w = gathered(params["embed"]).T if cfg.tie_embeddings \
-        else gathered(params["unembed"])
-    mesh = L._dtensor_mesh(w)
-    if mesh is not None:
-        # one gather of the vocab split, in the compute dtype, that every
-        # chunk slices (a slice of a vocab-split DTensor would gather it
-        # whole, once per chunk, each kept for the backward)
-        from repro_torch.dist import sharding
-        w = sharding.constrain(w.to(hidden.dtype), sharding.P(None, None),
-                               mesh)
+    return min(v, max(16384, -(-v // 16)))
+
+
+def _running_stats(cfg: ModelConfig, hidden, w, labels, off: int,
+                   chunk: int, stats=_chunk_stats):
+    """(max, sum of exp at the max, gold logit) per position over the
+    columns of ``w`` (vocabulary ids ``off`` on), ``chunk`` columns at a
+    time combined with a running logsumexp.  When a gradient is taken
+    each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``)."""
+    b, s = labels.shape
     dev = hidden.device
     m_run = torch.full((b, s), float("-inf"), dtype=torch.float32, device=dev)
     s_run = torch.zeros((b, s), dtype=torch.float32, device=dev)
     gold = torch.zeros((b, s), dtype=torch.float32, device=dev)
     grad = torch.is_grad_enabled() and (hidden.requires_grad
                                         or w.requires_grad)
-    off = 0
-    while off < v:
-        size = min(vc, v - off)
-        args = (cfg, hidden, w[:, off:off + size], labels, off)
-        stats = _chunk_stats_sharded if L._dtensor_mesh(hidden) is not None \
-            else _chunk_stats
+    v = w.shape[1]
+    lo = 0
+    while lo < v:
+        size = min(chunk, v - lo)
+        args = (cfg, hidden, w[:, lo:lo + size], labels, off + lo)
         m_c, s_c, gold_c = (checkpoint(stats, *args, use_reentrant=False)
                             if grad else stats(*args))
         gold = gold + gold_c
         m_new = torch.maximum(m_run, m_c)
         s_run = s_run * torch.exp(m_run - m_new) + s_c * torch.exp(m_c - m_new)
         m_run = m_new
-        off += size
-    logz = m_run + torch.log(s_run)
-    ce = torch.mean(logz - gold)
+        lo += size
+    return m_run, s_run, gold
+
+
+def _chunk_stats_sharded(cfg: ModelConfig, hidden, wc, labels, off: int):
+    """``_chunk_stats`` on each rank's shards under a live mesh where the
+    vocabulary is whole (``sharding.loss_specs``): the positions split
+    over the batch axes and ``model``, the chunk's unembedding whole on
+    every rank."""
+    from repro_torch.dist import sharding
+    mesh = L._dtensor_mesh(hidden)
+    t = sharding.loss_specs(mesh, tuple(hidden.shape), False)
+    return sharding.local_region(
+        mesh, lambda h, w, y: _chunk_stats(cfg, h, w, y, off),
+        [(hidden, t["hidden"]), (wc, t["w"]), (labels, t["labels"])],
+        [t["out"]] * 3)
+
+
+def _nll(cfg: ModelConfig, hidden, w, labels):
+    """Per-position cross entropy, logsumexp minus the gold logit
+    (float32), of ``hidden`` (B, S, d) against the columns of ``w`` (d, V),
+    vocab-chunked: never (B, S, V) at once.  Under a live mesh where the
+    vocabulary splits over ``model`` (``sharding.vocab_split``), the
+    vocab-parallel loss (``_nll_vocab_parallel``); where it is whole,
+    each chunk on each rank's positions (``_chunk_stats_sharded``)."""
+    from repro_torch.dist import sharding
+    mesh = L._dtensor_mesh(w)
+    if mesh is not None and sharding.vocab_split(w, 1, mesh):
+        return _nll_vocab_parallel(cfg, hidden, w, labels, mesh)
+    if mesh is not None:
+        # one gather of the unembedding in the compute dtype, which every
+        # chunk slices (a slice of a DTensor split along it would gather
+        # it whole, once per chunk, each kept for the backward)
+        w = sharding.constrain(w.to(hidden.dtype), sharding.P(None, None),
+                               mesh)
+    stats = _chunk_stats_sharded if L._dtensor_mesh(hidden) is not None \
+        else _chunk_stats
+    m, s, gold = _running_stats(cfg, hidden, w, labels, 0, _vocab_chunk(cfg),
+                                stats)
+    return m + torch.log(s) - gold
+
+
+def _nll_vocab_parallel(cfg: ModelConfig, hidden, w, labels, mesh):
+    """``_nll`` with the vocabulary split over ``model``, in one local
+    region (``sharding.loss_specs``): each rank its rows (the positions
+    over the batch axes only, the hidden state gathered whole along the
+    sequence) against its own slice of the columns, chunked over that
+    slice into as many chunks as the whole vocabulary has, the
+    statistics then combined over ``model`` (``_combine_over_vocab``).
+    No rank holds the whole vocabulary, nor its gradient."""
+    from repro_torch.dist import sharding
+    t = sharding.loss_specs(mesh, tuple(hidden.shape), True)
+    n = sharding.model_size(mesh)
+    off = mesh.coordinate()["model"] * (w.shape[1] // n)
+
+    def body(h, wl, y):
+        m, s, gold = _running_stats(cfg, h, wl, y, off,
+                                    -(-_vocab_chunk(cfg) // n))
+        m, s, gold = _combine_over_vocab(m, s, gold, mesh.group(("model",)))
+        return (m + torch.log(s) - gold,)
+    (nll,) = sharding.local_region(
+        mesh, body, [(hidden, t["hidden"]), (w, t["w"]),
+                     (labels, t["labels"])], [t["out"]])
+    return nll
+
+
+def _combine_over_vocab(m, s, gold, group):
+    """The statistics of each rank's slice of the vocabulary combined over
+    ``group`` (the ``model`` ranks): the running max by an all-reduce MAX
+    (detached: it only stabilises, and the logsumexp does not depend on
+    it), the sums of exp rescaled to it and summed, the gold logits
+    summed (only the rank whose slice holds the label adds one).  The
+    sums go through ``psum_replicated``, whose backward hands each rank
+    the replicated result's gradient, so the hidden state's gradient is
+    a pending sum over ``group`` and the unembedding's stays on the
+    rank's slice."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives
+    m_all = m.detach().clone()
+    dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+    s_all = collectives.psum_replicated(s * torch.exp(m - m_all), group)
+    return m_all, s_all, collectives.psum_replicated(gold, group)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> tuple:
+    """Cross entropy over a vocab-chunked unembedding, combined with a
+    running logsumexp (``_nll``): never materializes (B, S, V).  When a
+    gradient is taken, each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` on
+    ``chunk_stats``).  Returns (loss, {"ce": ce, "aux": aux})."""
+    hidden, aux, _, _ = forward(
+        cfg, params, batch["tokens"],
+        frames=batch.get("frames"), img_embeds=batch.get("img_embeds"))
+    w = gathered(params["embed"]).T if cfg.tie_embeddings \
+        else gathered(params["unembed"])
+    ce = torch.mean(_nll(cfg, hidden, w, batch["labels"]))
     moe_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
     loss = ce + moe_w * aux
     return loss, {"ce": ce, "aux": aux}

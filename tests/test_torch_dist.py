@@ -22,7 +22,8 @@ held to the live reference, then:
 * on a one-rank gloo mesh of shape (1, 1, 1): ``make_dp_grad_fn``'s
   ``flat`` and ``hier`` equal the plain value and gradient bit for bit
   (a sum and a mean over one rank are exact) and ``hier`` + int8 is
-  within half an int8 step per element, ``scale / 2``, to float32
+  within half an int8 step per element, ``scale / 2`` (one scale per
+  reference leaf: a stage's repeats quantized together), to float32
   rounding: ``scale * (1/2 + 2**-16)`` (the quotient ``x / scale`` and the
   product ``q * scale`` each round once, by at most 2**-17 of the scale
   since ``|x| <= 127 * scale``): ``chip_smoke.py`` phase 20's checks at
@@ -56,7 +57,8 @@ from repro.launch import shapes as r_shapes
 from repro.models import config as r_config
 from repro.models import model as r_model
 from repro_torch import configs as t_configs
-from repro_torch.dist import compression, context, data_parallel
+from repro_torch.dist import collectives, compression, context
+from repro_torch.dist import data_parallel
 from repro_torch.dist import decode_attn, sharding
 from repro_torch.dist.sharding import P
 from repro_torch.kernels import ref as t_ref
@@ -589,6 +591,7 @@ def test_one_rank_dp_schedules_equal_the_plain_gradient(tmp_path):
     batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
     lf = functools.partial(t_model.loss_fn, cfg)
     (want_l, _), want = t_steps._value_and_grad(cfg, params, batch)
+    stack = collectives.stack_repeats
     with one_rank_group(tmp_path):
         mesh = t_mesh.make_dev_mesh((1, 1, 1), ("pod", "data", "model"),
                                     device="cpu")
@@ -598,11 +601,15 @@ def test_one_rank_dp_schedules_equal_the_plain_gradient(tmp_path):
                 loss, grads = data_parallel.make_dp_grad_fn(
                     lf, mesh, **kw)(params, batch)
                 assert torch.equal(loss, want_l)
-                for g, w in zip(t_layers.tree_leaves(grads),
-                                t_layers.tree_leaves(want)):
-                    if kw.get("compress"):
+                if kw.get("compress"):
+                    # one scale per reference leaf: a stage's repeats
+                    # quantized together, as the pod hop sends them
+                    for g, w in zip(t_layers.tree_leaves(stack(grads)),
+                                    t_layers.tree_leaves(stack(want))):
                         _, scale = compression.quantize(w)
                         assert float((g - w).abs().max()) \
                             <= float(scale) * (0.5 + 2 ** -16)
-                    else:
-                        assert torch.equal(g, w)
+                    continue
+                for g, w in zip(t_layers.tree_leaves(grads),
+                                t_layers.tree_leaves(want)):
+                    assert torch.equal(g, w)

@@ -22,8 +22,9 @@ Checks, with the reference's own bounds (``tests/test_dist.py``):
   within 1e-5 relative (bfloat16 compute, as shipped); in float32
   compute each schedule's gradient is within 1e-4 per leaf of the
   reference's (summation order only); ``hier`` + int8 is within its
-  bound: the pods' int8 scales summed, halved and divided by the 8 ranks
-  (each pod's rounding error is at most half its scale), plus 1e-6 for
+  bound: the pods' int8 scales (one per reference leaf, a stage's
+  repeats stacked) summed, halved and divided by the 8 ranks (each
+  pod's rounding error is at most half its scale), plus 1e-6 for
   summation order (the reference's own bound between flat and hier);
 * ``seq_sharded_attention`` on a (2, 4) ``("data", "model")`` mesh at
   (offset, window) = (40, None), (63, 16), (0, None), each rank handed
@@ -173,10 +174,11 @@ def _grads(ref_all, mesh) -> dict:
         local = tree_map(lambda t: sharding.local_rows(mesh, t, (
             "pod", "data")), batch)
         _, g = data_parallel.value_and_grad(lf)(params, local)
+        # one scale per reference leaf: a stage's repeats stacked
         scales = tree_map(lambda t: collectives.all_gather(
             compression.quantize(collectives.psum(
                 t, mesh.group("data")))[1].reshape(1), mesh.group("pod")),
-            g)
+            collectives.stack_repeats(g))
     finally:
         M.COMPUTE_DTYPE = compute
     for name in ("flat", "hier"):
@@ -188,8 +190,10 @@ def _grads(ref_all, mesh) -> dict:
         out[name] = {"loss": float(loss), "ref_loss": ref[name]["loss"],
                      "max_leaf_err": max(errs.values())}
     loss8, g8 = runs["int8"]
+    stack = collectives.stack_repeats
     excess = [float(((a - b).abs() - (s.sum() / 2 / WORLD + 1e-6)).max())
-              for a, b, s in zip(tree_leaves(g8), tree_leaves(runs["flat"][1]),
+              for a, b, s in zip(tree_leaves(stack(g8)),
+                                 tree_leaves(stack(runs["flat"][1])),
                                  tree_leaves(scales))]
     out["int8"] = {"loss": float(loss8), "flat_loss": float(runs["flat"][0]),
                    "max_excess": max(excess)}

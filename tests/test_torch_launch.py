@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.launch import dryrun, probe, report, shapes, steps
+from repro_torch.launch import census, dryrun, probe, report, shapes, steps
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.config import smoke_config
 
@@ -164,6 +164,56 @@ def test_report_tables_render(records):
     assert table.count("| ok |") == len(records) and "SKIP" in table
     assert roof.count("\n") == len(records) + 1
     assert f"{len(records)} ok / 1 skipped / 0 errors" in summ
+
+
+class _Shapes(census.Census):
+    """The census, also counting the shape of every tensor its local ops
+    make."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes: set = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is not NotImplemented and not self._in_prop:
+            self.shapes.update(tuple(t.shape) for t in census._tensors(out))
+        return out
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_train_step_keeps_the_vocabulary_split(records, tied):
+    """qwen2-7b ``train_4k`` at smoke size (vocab 256 over a ``model``
+    axis of 2, d 64): as in the reference's program, no rank holds the
+    whole vocabulary.  No collective's operand and no tensor that a local
+    op makes is (256, 64) or (64, 256), and no collective moves the
+    whole float32 table (65 536 bytes); the record's collective total is
+    below the 1 450 672 bytes of the loss that gathered the unembedding
+    whole and the embedding whose backward made the whole table's
+    gradient.  (Element counts alone do not tell: a chunk of logits over
+    a rank's 128 columns, (2, 64, 128), has as many elements as the
+    table, as the reference's f32[128,128] has.)"""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist import context
+    arch, shape = "qwen2-7b", "train_4k"
+    cfg = smoke_config(configs.get(arch), tie_embeddings=tied)
+    v, d = cfg.vocab, cfg.d_model
+    mesh = mesh_mod.make_fake_mesh(True, device="cpu", shape=MESH[0],
+                                   axes=MESH[1])
+    try:
+        case = steps.make_case(cfg, smoke_cell(arch, shape), mesh,
+                               device="cpu")
+        with case.mode, context.use_mesh(mesh), implicit_replication(), \
+                _Shapes() as c:
+            case.fn(*case.args)
+    finally:
+        mesh_mod.destroy_fake_mesh()
+    whole = {(v, d), (d, v)}
+    assert not [op for op in c.ops if tuple(op["shape"]) in whole
+                or op["bytes"] == v * d * 4], c.ops
+    assert not c.shapes & whole, c.shapes & whole
+    assert c.collectives()["total_bytes"] < 1_450_672
+    assert records[(arch, shape)]["collectives"]["total_bytes"] < 1_450_672
 
 
 def test_fake_counts_equal_real_counts():

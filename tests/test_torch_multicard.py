@@ -17,7 +17,8 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CHECKS = ("dp_grads", "ring_decode", "moe", "reshard", "census")
+CHECKS = ("dp_grads", "ring_decode", "moe", "reshard", "train_step",
+          "census")
 
 
 def _rank(rank: int, port: int, out: str) -> None:

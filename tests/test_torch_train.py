@@ -42,13 +42,19 @@ from repro_torch.optim import adamw as t_adamw
 
 torch.set_num_threads(2)
 ARCHS = ["qwen2-7b", "mamba2-1.3b", "whisper-small"]
+# the same with the embedding tied (``unembed`` = ``embed``.T), a route
+# that no published configuration takes but both packages keep
+TIED = "qwen2-7b+tied"
 _SETUPS: dict = {}
 
 
 def setup_for(arch: str):
-    """(reference config, port config, numpy tree) at smoke size."""
+    """(reference config, port config, numpy tree) at smoke size; an
+    ``arch`` ending in ``+tied`` ties the embedding."""
     if arch not in _SETUPS:
-        rcfg = r_config.smoke_config(r_configs.get(arch))
+        name, _, tied = arch.partition("+")
+        rcfg = r_config.smoke_config(r_configs.get(name),
+                                     tie_embeddings=tied == "tied")
         tcfg = convert.config_from_reference(rcfg)
         _SETUPS[arch] = (rcfg, tcfg, convert.init_numpy(tcfg, seed=0))
     return _SETUPS[arch]
@@ -106,7 +112,7 @@ def port_params(cfg, tree, requires_grad=False):
 # ---------------------------------------------------------------------------
 # the gradient of loss_fn
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [TIED])
 def test_value_and_grad_match_jax(arch, f32):
     rcfg, tcfg, tree = setup_for(arch)
     batch = batch_for(tcfg, 2, 40, seed=1)
