@@ -487,16 +487,17 @@ def main_path_experiments():
 
 
 def phase_main_path():
+    from repro_torch import telemetry
     from repro_torch.core.experiment import run_experiments
     from repro_torch.kernels import noc_step
 
     exps, ref = main_path_experiments()
-    noc_step.reset_launches()
+    telemetry.drain()
     t0 = time.perf_counter()
     reports = run_experiments(exps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = noc_step.mode_launches[noc_step.STATISTICAL]
+    launches = noc_step.launches()[noc_step.STATISTICAL]
     say(3, f"run_experiments: {len(exps)} points, {launches} noc_step "
            f"launches, {wall:.3f} s host wall clock incl. geometry and "
            f"stream setup [{CARD}]")
@@ -771,6 +772,7 @@ def watchdog_demo(ref, backend: str):
 def phase_trace(ref) -> tuple[int, float, list]:
     """Trace replay at full width.  Returns (trace-mode launches of the
     path, largest kernel-vs-twin difference, the path's experiments)."""
+    from repro_torch import telemetry
     from repro_torch.kernels import noc_step
 
     want = {(p["family"], p["n_pes"], p["schedule"]): p
@@ -779,15 +781,15 @@ def phase_trace(ref) -> tuple[int, float, list]:
         bench = {(row["topology"], row["n_pes"], row["schedule"]): row
                  for row in json.load(f)["tables"]["trace_replay"]["rows"]}
     sizes = ref["recipes"]["trace_replay"]["sizes"]
-    noc_step.reset_launches()
+    telemetry.drain()
     with host_clock(clocked_targets()) as spent:
         t0 = time.perf_counter()
         tags, reports = trace_grid(ref, sizes, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = noc_step.mode_launches[noc_step.TRACE]
+    launches = noc_step.launches()[noc_step.TRACE]
     say(5, f"run_grid over {len(reports)} trace points: launches by mode "
-           f"{noc_step.mode_launches}, {host_split(wall, spent)} [{CARD}]")
+           f"{noc_step.launches()}, {host_split(wall, spent)} [{CARD}]")
     assert launches > 0, "the trace path never launched the kernel's mode"
     for tag, rep in zip(tags, reports):
         assert as_reference(rep.sim) == {
@@ -869,6 +871,7 @@ def phase_faults(ref) -> tuple[int, float, list, dict]:
     """Runtime faults at 256 and 1024 PEs.  Returns (fault-mode launches
     of the path, largest kernel-vs-twin difference, the experiments, the
     reports by (family, n, mode, dead links, fault seed))."""
+    from repro_torch import telemetry
     from repro_torch.core import sim
     from repro_torch.core.experiment import run_experiments
     from repro_torch.faults import FaultSpec, LinkFault, sample_faults
@@ -889,15 +892,15 @@ def phase_faults(ref) -> tuple[int, float, list, dict]:
                 fam, n, mode, c, s)
 
     tags, exps = fault_grid(ref, (256, 1024), "cuda")
-    noc_step.reset_launches()
+    telemetry.drain()
     with host_clock(clocked_targets()) as spent:
         t0 = time.perf_counter()
         reports = run_experiments(exps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = noc_step.mode_launches[noc_step.FAULTS]
+    launches = noc_step.launches()[noc_step.FAULTS]
     say(6, f"run_experiments over {len(exps)} points: launches by mode "
-           f"{noc_step.mode_launches}, {host_split(wall, spent)} [{CARD}]")
+           f"{noc_step.launches()}, {host_split(wall, spent)} [{CARD}]")
     assert launches > 0, "the fault path never launched the kernel's mode"
     check(tags, reports)
     for tag, rep in zip(tags, reports):
@@ -1602,6 +1605,7 @@ def phase_analysis(fault_ref, fault_reports) -> None:
     """The fabric analysis on the card: every reference certificate, the
     main path behind ``verify=True``, ``measure_repair`` and the BFS-refill
     cycle witness."""
+    from repro_torch import telemetry
     from repro_torch.analysis import fabric
     from repro_torch.core.experiment import Budget, run_experiments
     from repro_torch.core.spec import TopologySpec
@@ -1643,14 +1647,14 @@ def phase_analysis(fault_ref, fault_reports) -> None:
     exps, main_ref = main_path_experiments()
     specs = {e.topology for e in exps}
     fabric.clear_certificate_cache()
-    noc_step.reset_launches()
+    telemetry.drain()
     t0 = time.perf_counter()
     verified = [dataclasses.replace(e, verify=True) for e in exps]
     t_cert = time.perf_counter() - t0
     reports = run_experiments(verified)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = noc_step.mode_launches[noc_step.STATISTICAL]
+    launches = noc_step.launches()[noc_step.STATISTICAL]
     assert launches > 0, "the verified main path never launched the kernel"
     check_main_path(verified, reports, main_ref)
     cached = {s: fabric.certify(s) for s in specs}
@@ -1677,7 +1681,7 @@ def phase_analysis(fault_ref, fault_reports) -> None:
     rc, rs = r["repair_count"], r["seeds"][0]
     want_certs = [e["certificate"] for e in certs
                   if e["label"] == "fault_recipe_repair"]
-    noc_step.reset_launches()
+    telemetry.drain()
     t0 = time.perf_counter()
     outs = {}
     for n in REPAIR_SIZES:
@@ -1690,7 +1694,7 @@ def phase_analysis(fault_ref, fault_reports) -> None:
                 seed=r["seed"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(noc_step.mode_launches)
+    launches = noc_step.launches()
     say(12, f"measure_repair at {REPAIR_SIZES} PEs: launches by mode "
             f"{launches}, {wall:.3f} s host wall clock [{CARD}]")
     assert launches[noc_step.FAULTS] > 0, "no fault-mode launch"

@@ -70,6 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import packet as pk
 from repro_torch.core import topology as topo_mod
 
@@ -631,6 +632,7 @@ def certify_topology(topo: topo_mod.Topology, *, spec=None,
 _CERT_CACHE: dict = {}
 
 
+@telemetry.spanned("fabric.certify")
 def certify(target, *, use_cache: bool = True,
             device="cuda") -> FabricCertificate:
     """Certify a ``TopologySpec`` (cached on the spec, which also keys the

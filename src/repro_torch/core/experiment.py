@@ -32,6 +32,7 @@ import dataclasses
 import json
 from typing import Iterable, Optional, Sequence, Union
 
+from repro_torch import telemetry
 from repro_torch.core import analytic, area, power, sim, sweep, traffic
 from repro_torch.core.spec import TopologySpec
 from repro_torch.faults.spec import FaultSpec
@@ -200,6 +201,7 @@ class Experiment:
         return cls.from_dict(json.loads(s))
 
 
+@telemetry.spanned("experiment.run_experiments")
 def run_experiments(exps: Sequence[Experiment]) -> list["Report"]:
     """Run many experiments, batching aggressively: experiments are
     grouped by topology spec (one geometry upload and one kernel launch
@@ -296,6 +298,7 @@ class Report:
         return cls.from_dict(json.loads(s))
 
 
+@telemetry.spanned("experiment.report")
 def _report(exp: Experiment, r: sim.SimResult) -> Report:
     activity = power.activity_from_sim(r.flit_hops_per_cycle,
                                        exp.topology.n_pes)

@@ -37,6 +37,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import packet as pk
 from repro_torch.core import prng
 from repro_torch.core import topology as topo_mod
@@ -454,6 +455,7 @@ def _structural_cache(topo: topo_mod.Topology) -> dict:
     return cache
 
 
+@telemetry.spanned("sim.build_geometry")
 def build_geometry(topo: topo_mod.Topology, device="cuda") -> Geometry:
     """Device-ready geometry on ``device``.  The structural tables are
     uploaded once per (topology, device); the route table is re-read every
@@ -476,6 +478,7 @@ def build_geometry(topo: topo_mod.Topology, device="cuda") -> Geometry:
 # ---------------------------------------------------------------------------
 # The hot path.
 # ---------------------------------------------------------------------------
+@telemetry.spanned("sim.draw_streams")
 def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
                  device) -> tuple[torch.Tensor, torch.Tensor,
                                   Optional[torch.Tensor]]:
@@ -497,6 +500,7 @@ def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
     n_faults = points[0].fault_links.shape[0]
     if any(pt.fault_links.shape[0] != n_faults for pt in points):
         raise ValueError("points of one batch must share a fault count")
+    telemetry.count("streams.points", len(points))
     inj_all, dst_all, fu_all = [], [], []
     for pt in points:
         if n_faults:
@@ -533,6 +537,7 @@ def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
     return torch.stack(inj_all), torch.stack(dst_all), fault_u
 
 
+@telemetry.spanned("sim.batch_operands")
 def batch_operands(points: list[SweepPoint], n_pes: int, cycles: int,
                    device):
     """Everything the cycle loop reads for a batch of points, on
@@ -581,13 +586,16 @@ class Metrics:
     stall_unretired: np.ndarray
 
 
+@telemetry.spanned("sim._run_core")
 def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
               warmup: int, starvation_limit: int, arb_iters: int = ARB_ITERS,
               diagnostics: bool = False, backend: str = "cuda",
               strict_barrier: bool = False, watchdog: int = 0) -> Metrics:
     """Run a batch of points on one geometry: ``backend="cuda"`` launches
     the kernel once for the whole batch, ``"torch"`` loops the twin.  The
-    points share their trace phase count and their fault count."""
+    points share their trace phase count and their fault count.  While
+    telemetry is on, the launch's arbitration passes of each point are
+    kept (``noc_step.passes``)."""
     # Queue payload: one packed int32 word per slot, ``born << 11 | dst+1``
     # (n_pes <= 1024 so dst+1 < 2048; empty slot = 0 -> dst -1).
     assert cycles < (1 << 20), "packed born field supports < 2^20 cycles"
@@ -607,13 +615,15 @@ def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
         if dev.type != "cuda":
             raise ValueError("backend='cuda' needs a geometry on a CUDA "
                              "device")
-        ql, m_scal, m_kind, _, ph_done = noc_step.run_fused(
+        ql, m_scal, m_kind, passes, ph_done = noc_step.run_fused(
             geom, inj_s, dst_s, **kw)
     elif backend == "torch":
-        ql, m_scal, m_kind, _, ph_done = noc_step.run_plain(
+        ql, m_scal, m_kind, passes, ph_done = noc_step.run_plain(
             geom, inj_s, dst_s, **kw)
     else:  # pragma: no cover - SimConfig validates first
         raise ValueError(f"unknown simulator backend {backend!r}")
+    telemetry.kernel("noc_step.passes", backend=backend, cycles=cycles,
+                     passes=passes)
     kind_oh = geom.kind[None, :] == torch.arange(
         8, dtype=torch.int32, device=ql.device)[:, None]       # [8, L+1]
     q_len_by_kind = (kind_oh[None] * ql[:, None, :]).sum(dim=2)
@@ -642,6 +652,7 @@ def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
 _REACH_CACHE: dict = {}
 
 
+@telemetry.spanned("sim._fault_reachability")
 def _fault_reachability(topo: topo_mod.Topology,
                         faults: Optional[FaultSpec]) -> float:
     if not faults:
@@ -683,6 +694,7 @@ def _to_result(topo: topo_mod.Topology, cfg: SimConfig, m: Metrics,
     )
 
 
+@telemetry.spanned("sim.run_batch")
 def run_batch(topo: topo_mod.Topology, cfgs: list[SimConfig], *,
               diagnostics: bool = False) -> tuple[list[SimResult], Metrics]:
     """Run configs that share a static key (cycles, warmup,

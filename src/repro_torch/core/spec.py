@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 
+from repro_torch import telemetry
 from repro_torch.core import morph as morph_mod
 from repro_torch.core import packet as pk
 from repro_torch.core import topology as topo_mod
@@ -146,6 +147,7 @@ class TopologySpec:
                 t.reachable = reach
         return t
 
+    @telemetry.spanned("spec.TopologySpec.build")
     def build(self) -> topo_mod.Topology:
         """The memoized Topology for this spec — the canonical geometry
         cache: equal specs share one object, hence one structural geometry

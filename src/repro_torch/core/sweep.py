@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterable, Optional, Sequence
 
+from repro_torch import telemetry
 from repro_torch.core import sim
 from repro_torch.core import topology as topo_mod
 from repro_torch.core import traffic
@@ -38,6 +39,7 @@ def _grouped(topo: topo_mod.Topology,
     return groups
 
 
+@telemetry.spanned("sweep.sweep")
 def sweep(topo: topo_mod.Topology,
           cfgs: Sequence[sim.SimConfig],
           verify: bool = False) -> list[sim.SimResult]:

@@ -48,6 +48,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.core import packet as pk
 
 # Queue kinds
@@ -429,6 +430,7 @@ def build_flat_mesh(n_pes: int, queue_depth: int = 2,
 _FABRIC_KINDS = (RING, RS2R, R2RS, MESH)
 
 
+@telemetry.spanned("topology.walk_classify")
 def _walk_classify(route: np.ndarray, is_sink: np.ndarray,
                    dead: np.ndarray | None = None) -> np.ndarray:
     """Bool [n_links, n_pes]: does a flit for dest ``d`` sitting in queue
@@ -453,7 +455,9 @@ def _walk_classify(route: np.ndarray, is_sink: np.ndarray,
     ptr = np.vstack([ptr,
                      np.full((1, p), a_ok, np.int32),
                      np.full((1, p), a_bad, np.int32)])
-    for _ in range(int(np.ceil(np.log2(max(l_n, 2)))) + 1):
+    doublings = int(np.ceil(np.log2(max(l_n, 2)))) + 1
+    telemetry.count("topology.walk_doublings", doublings)
+    for _ in range(doublings):
         ptr = np.take_along_axis(ptr, ptr, axis=0)
     return ptr[:l_n] == a_ok
 
@@ -475,6 +479,7 @@ def reachable_pairs(topo: Topology,
     return ok[topo.pe_src_link]
 
 
+@telemetry.spanned("topology.reachable_fraction")
 def reachable_fraction(topo: Topology,
                        dead: np.ndarray | None = None) -> float:
     """Off-diagonal fraction of reachable (src, dst) pairs."""
@@ -486,6 +491,7 @@ def reachable_fraction(topo: Topology,
     return off / (p * (p - 1))
 
 
+@telemetry.spanned("topology.reroute_avoiding")
 def reroute_avoiding(topo: Topology, dead: np.ndarray
                      ) -> tuple[np.ndarray, np.ndarray]:
     """Rebuild ``topo.route_table`` around the dead queues.
@@ -534,6 +540,7 @@ def reroute_avoiding(topo: Topology, dead: np.ndarray
     dist = np.full((n_nodes + 1, p), inf, np.int32)
     dist[np.arange(p), np.arange(p)] = 0
     for _ in range(4 * n_nodes):
+        telemetry.count("topology.bellman_ford_rounds")
         best = dist[cand_t].min(axis=1) + 1
         new = np.minimum(dist[:n_nodes], best)
         if np.array_equal(new, dist[:n_nodes]):
@@ -558,6 +565,7 @@ def reroute_avoiding(topo: Topology, dead: np.ndarray
     return new_route, ok[topo.pe_src_link]
 
 
+@telemetry.spanned("topology.build")
 def build(name: str, n_pes: int, **kw) -> Topology:
     """Deprecation shim: stringly topology construction.  New code should
     declare a ``core.spec.TopologySpec`` and call ``.build()`` — the spec

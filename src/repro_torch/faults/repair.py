@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch import telemetry
 from repro_torch.faults.spec import FaultSpec
 
 # core.experiment imports core.spec, which imports faults.spec — this
@@ -67,6 +68,7 @@ def healthy_twin(spec: TopologySpec) -> TopologySpec:
     return dataclasses.replace(spec, faults=None)
 
 
+@telemetry.spanned("repair.suggest_repair_morph")
 def suggest_repair_morph(spec: TopologySpec,
                          faults: Optional[FaultSpec] = None) -> TopologySpec:
     """The repaired spec: ``faults``' dead components (merged with any the
@@ -79,6 +81,7 @@ def suggest_repair_morph(spec: TopologySpec,
     return dataclasses.replace(spec, faults=dead)
 
 
+@telemetry.spanned("repair.measure_repair")
 def measure_repair(spec: TopologySpec, faults: FaultSpec, *,
                    traffic="uniform", inj_rate: float = 0.25,
                    budget: Optional[exp_mod.Budget] = None,

@@ -79,6 +79,14 @@
 // that owns the PE's inject row; the cycle ends in a cluster barrier, after
 // which rank 0 adds every rank's counts and runs the phase barrier update,
 // and the others read its cursor in the next cycle's stage 4.
+//
+// Counters.  Given a `clock_out` buffer, the host launches the mode's
+// twin with its counters on (noc_step_clocked: the same body with CLOCK
+// set): thread 0 of each CTA adds up the clock64() cycles it spends inside
+// each barrier of the cycle loop and times the whole loop, in two int64
+// words of the control block, and writes both at the end: the share of
+// the loop a CTA waits at barriers.  Off (a null pointer), noc_step_kernel
+// runs the body without them, so the counters cost it nothing.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -101,13 +109,16 @@ constexpr int C_DELIV = 0, C_OFFER = 1, C_ACC = 2, C_DROP_INJ = 3,
               N_CYC = 26;
 // The control block: per-cycle counters (two slots by cycle parity), the
 // CTA's metric partials, the fixpoint flags (three slots by pass),
-// rank 0's trace barrier state, and the length of the active-row list.  Words; kernels/noc_step.py mirrors
-// the count (CTL_WORDS).
+// rank 0's trace barrier state, the length of the active-row list, and
+// two int64 clocks (SM cycles waited at the cycle loop's barriers, and of
+// the whole loop) kept by thread 0 while the counters are on.  Words;
+// kernels/noc_step.py mirrors the count (CTL_WORDS).
 constexpr int K_CYC = 0, K_SCAL = 2 * N_CYC, K_KIND = K_SCAL + N_SCALARS,
               K_BAD = K_KIND + 16, K_CUR = K_BAD + 3, K_CREDIT = K_CUR + 1,
               K_STALL = K_CUR + 2, K_DONE = K_CUR + 3, K_NACT = K_CUR + 4,
-              CTL_WORDS = 84;
-static_assert(K_NACT < CTL_WORDS, "control block overflow");
+              K_WAITED = K_NACT + 1, K_LOOP = K_WAITED + 2, CTL_WORDS = 88;
+static_assert(K_LOOP + 2 <= CTL_WORDS, "control block overflow");
+static_assert(K_WAITED % 2 == 0, "the int64 clocks need 8-byte alignment");
 
 // One CTA's shared memory.  `carve` lays it out, 16-byte aligned arrays in
 // this order; kernels/noc_step.py:shared_bytes repeats the arithmetic.
@@ -241,6 +252,9 @@ struct Params {
   const int32_t* f_links;   // [B, F] queue ids (pad = L)
   const float* f_drop;      // [B, F] (pad = 0)
   const int32_t* f_onset;   // [B, F]
+  // Counters: per CTA (blockIdx.x), the SM cycles thread 0 waited at the
+  // cycle loop's barriers and the cycles of the whole loop; null = off.
+  long long* clock_out;     // [B, C, 2]
   int L1, P, NP1, depth, cycles, warmup, starv, arb_iters, diagnostics,
       pow2, n_phases, strict_barrier, watchdog, F;
   // Cluster: C CTAs per point, R rows and RC channels per CTA, and the
@@ -291,8 +305,25 @@ __device__ __forceinline__ void cluster_sync() {
     __syncthreads();
 }
 
-template <bool TRACE, bool FAULTS, bool CL>
-__global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
+// One barrier of the cycle loop, `sync`.  With the counters on (CLOCK),
+// thread 0 adds the SM cycles it spent in it to `*waited`, in shared
+// memory, so that nothing is held in a register across the barrier.
+template <bool CLOCK, typename Sync>
+__device__ __forceinline__ int counted(long long* waited, Sync sync) {
+  if constexpr (!CLOCK) {
+    return sync();
+  } else {
+    if (threadIdx.x == 0) *waited -= clock64();
+    const int r = sync();
+    if (threadIdx.x == 0) *waited += clock64();
+    return r;
+  }
+}
+
+// The kernel's body; noc_step_kernel runs it with the counters off and
+// noc_step_clocked with them on.
+template <bool TRACE, bool FAULTS, bool CL, bool CLOCK>
+__device__ __forceinline__ void noc_step_body(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem s;
   carve(&s, smem, p.R, p.RC, p.depth, p.P, p.F, p.n_phases);
@@ -312,6 +343,16 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
   // is ever read, so the saturated counter gives the same scores.
   const int starv = p.starv;
   int32_t* ctl = s.ctl;
+  long long* const waited = reinterpret_cast<long long*>(ctl + K_WAITED);
+  long long* const loop = reinterpret_cast<long long*>(ctl + K_LOOP);
+  auto block_sync = [] {
+    __syncthreads();
+    return 0;
+  };
+  auto all_sync = [] {
+    cluster_sync<CL>();
+    return 0;
+  };
 
   // --- set-up: this CTA's static rows, zeroed state ---------------------
   for (int lr = tid; lr < n_rows; lr += nt) {
@@ -350,6 +391,7 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
   int passes = 0;    // arbitration passes of this point (every rank alike)
   int pass_no = 0;   // running pass count: the parity of the pass's slots
   cluster_sync<CL>();
+  if (CLOCK && tid == 0) *loop = clock64();
 
   for (int cycle = 0; cycle < p.cycles; ++cycle) {
     int* cyc = ctl + K_CYC + (cycle & 1) * N_CYC;
@@ -401,7 +443,7 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
         s.act[at + __popc(ballot & ((1u << (tid & 31)) - 1))] = (int16_t)lr;
     }
     // The first pass's scatter reads only this CTA's rows.
-    __syncthreads();
+    counted<CLOCK>(waited, block_sync);
     const int n_act = ctl[K_NACT];
 
     // --- 2. grant / re-arbitrate fixpoint, counter from 1 ---------------
@@ -427,7 +469,7 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
         atomicMax(&chans.at(s.best + (pass_no % 3) * p.RC, s.nphys[lr]),
                   s.score[lr]);
     }
-    cluster_sync<CL>();
+    counted<CLOCK>(waited, all_sync);
     // Each pass reads the last pass's flags (prev) and writes its rows'
     // flags to its own slot, so nothing a pass reads in another CTA is
     // rewritten while it reads.
@@ -488,12 +530,13 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
       }
       int any;
       if constexpr (!CL) {
-        any = __syncthreads_or(bad);
+        any = counted<CLOCK>(waited,
+                             [bad] { return __syncthreads_or(bad); });
       } else {
         int* flag = ctl + K_BAD + slot;
         if (__any_sync(0xffffffffu, bad) && (tid & 31) == 0)
           for (int rk = 0; rk < p.C; ++rk) *of_rank(flag, rk, me) = 1;
-        cluster_sync<CL>();
+        counted<CLOCK>(waited, all_sync);
         any = *(volatile int*)flag;
       }
       ++pass_no;
@@ -567,7 +610,7 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
     block_add(&cyc[C_RESID], resid);
     block_add(&cyc[C_DROP_ROUTE], droute);
     if constexpr (FAULTS) block_add(&cyc[C_FAULT], fdrop);
-    cluster_sync<CL>();
+    counted<CLOCK>(waited, all_sync);
 
     // --- 4. enqueue, then injection --------------------------------------
     // Nothing routes into an inject queue, and each PE's inject queue is
@@ -631,9 +674,9 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
     // so a block barrier ends the cycle; trace mode's phase barrier reads
     // every rank's counts, which takes the whole cluster.
     if constexpr (TRACE)
-      cluster_sync<CL>();
+      counted<CLOCK>(waited, all_sync);
     else
-      __syncthreads();
+      counted<CLOCK>(waited, block_sync);
 
     // --- 5. metric accumulation (warmup-gated; `lost` ungated) ----------
     // Each CTA folds its own counts into its partials, one thread per
@@ -705,6 +748,10 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
     // The next writes to this slot of cyc[] come two cycles on, after it is
     // cleared behind the next cycle's first cluster barrier.
   }
+  if (CLOCK && tid == 0) {
+    p.clock_out[2 * (size_t)blockIdx.x] = *waited;
+    p.clock_out[2 * (size_t)blockIdx.x + 1] = clock64() - *loop;
+  }
   cluster_sync<CL>();
 
   for (int lr = tid; lr < n_rows; lr += nt)
@@ -729,6 +776,16 @@ __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
   }
   // No CTA leaves while rank 0 may still read its shared memory.
   cluster_sync<CL>();
+}
+
+template <bool TRACE, bool FAULTS, bool CL>
+__global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
+  noc_step_body<TRACE, FAULTS, CL, false>(p);
+}
+
+template <bool TRACE, bool FAULTS, bool CL>
+__global__ void __launch_bounds__(1024, 1) noc_step_clocked(Params p) {
+  noc_step_body<TRACE, FAULTS, CL, true>(p);
 }
 
 // The cost of one barrier: `iters` cluster barriers (block barriers when
@@ -769,20 +826,25 @@ cudaError_t launch_clustered(Kernel kernel, int blocks, int C, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, *p);
 }
 
+// The mode's kernel, its counters on when p->clock_out is set.
+template <bool TRACE, bool FAULTS, bool CL>
+cudaError_t launch_mode(int batch, int C, size_t bytes, cudaStream_t s,
+                        const Params* p) {
+  if (p->clock_out != nullptr)
+    return launch_clustered(noc_step_clocked<TRACE, FAULTS, CL>, batch, C,
+                            1024, bytes, s, p);
+  return launch_clustered(noc_step_kernel<TRACE, FAULTS, CL>, batch, C, 1024,
+                          bytes, s, p);
+}
+
 template <bool CL>
 cudaError_t dispatch(bool trace, bool faults, int batch, int C, size_t bytes,
                      cudaStream_t s, const Params* p) {
   if (trace && faults)
-    return launch_clustered(noc_step_kernel<true, true, CL>, batch, C, 1024,
-                            bytes, s, p);
-  if (trace)
-    return launch_clustered(noc_step_kernel<true, false, CL>, batch, C, 1024,
-                            bytes, s, p);
-  if (faults)
-    return launch_clustered(noc_step_kernel<false, true, CL>, batch, C, 1024,
-                            bytes, s, p);
-  return launch_clustered(noc_step_kernel<false, false, CL>, batch, C, 1024,
-                          bytes, s, p);
+    return launch_mode<true, true, CL>(batch, C, bytes, s, p);
+  if (trace) return launch_mode<true, false, CL>(batch, C, bytes, s, p);
+  if (faults) return launch_mode<false, true, CL>(batch, C, bytes, s, p);
+  return launch_mode<false, false, CL>(batch, C, bytes, s, p);
 }
 
 unsigned magic(int divisor) {
@@ -854,8 +916,9 @@ int noc_step_barrier_probe(int C, int threads, int iters, void* cycles_out,
 
 // Launches the kernel on `stream`: one cluster of C CTAs per point (grid =
 // batch * C), in the mode its operands ask for: trace replay when
-// n_phases > 0, fault injection when F > 0.  Returns cudaGetLastError()
-// as an int (0 = launched).
+// n_phases > 0, fault injection when F > 0.  A non-null `clock_out`
+// ([batch, C, 2] int64) turns the barrier-wait counters on.  Returns
+// cudaGetLastError() as an int (0 = launched).
 int noc_step_launch(const void* inj, const void* dst, const void* route,
                     const void* kind, const void* prio, const void* cap,
                     const void* phys, const void* is_sink,
@@ -866,7 +929,8 @@ int noc_step_launch(const void* inj, const void* dst, const void* route,
                     const void* ph_flits, const void* ph_total,
                     void* ph_done_out, const void* fault_u,
                     const void* f_links, const void* f_drop,
-                    const void* f_onset, int batch, int L1, int P, int NP1,
+                    const void* f_onset, void* clock_out, int batch,
+                    int L1, int P, int NP1,
                     int depth, int cycles, int warmup, int starv,
                     int arb_iters, int diagnostics, int pow2, int n_phases,
                     int strict_barrier, int watchdog, int F, int C,
@@ -895,6 +959,7 @@ int noc_step_launch(const void* inj, const void* dst, const void* route,
   p.f_links = static_cast<const int32_t*>(f_links);
   p.f_drop = static_cast<const float*>(f_drop);
   p.f_onset = static_cast<const int32_t*>(f_onset);
+  p.clock_out = static_cast<long long*>(clock_out);
   p.L1 = L1;
   p.P = P;
   p.NP1 = NP1;

@@ -38,6 +38,7 @@ import numpy as np
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import build
 
 # Flat metric-accumulator layout shared by the twin and the kernel: slot
@@ -52,16 +53,19 @@ N_SCALARS = 8
 KIND_WINS, KIND_STALLS, KIND_QLEN = range(3)
 N_KIND_ROWS = 3
 
-# Launches of the CUDA kernel since the last ``reset_launches()``, by mode.
+# The kernel's modes, and the telemetry counter of each mode's launches.
 # A launch with both trace replay and faults counts under both of those
 # modes.
 STATISTICAL, TRACE, FAULTS = "noc_step", "noc_step[trace]", "noc_step[faults]"
-mode_launches = {STATISTICAL: 0, TRACE: 0, FAULTS: 0}
+LAUNCH_COUNTERS = {STATISTICAL: "noc_step.launches[statistical]",
+                   TRACE: "noc_step.launches[trace]",
+                   FAULTS: "noc_step.launches[faults]"}
 
 
-def reset_launches() -> None:
-    for k in mode_launches:
-        mode_launches[k] = 0
+def launches() -> dict[str, int]:
+    """The kernel's launches by mode since the last ``telemetry.drain()``."""
+    return {mode: telemetry.counter(name)
+            for mode, name in LAUNCH_COUNTERS.items()}
 
 
 def launch_modes(trace, faults) -> tuple[str, ...]:
@@ -394,9 +398,10 @@ THREADS = 1024
 SHARED_LIMIT_BYTES = 232_448
 MAX_CLUSTER = 8
 # Words of the kernel's per-CTA control block (counters, metric partials,
-# fixpoint flags, trace barrier state, the active-row count):
+# fixpoint flags, trace barrier state, the active-row count, the two
+# int64 clocks of the barrier waits and the cycle loop):
 # csrc/noc_step.cu's CTL_WORDS.
-CTL_WORDS = 84
+CTL_WORDS = 88
 
 
 def _a16(n: int) -> int:
@@ -600,7 +605,7 @@ def layout(geom, cluster: int) -> Layout:
 
 def _configure(lib: ctypes.CDLL) -> None:
     lib.noc_step_launch.restype = ctypes.c_int
-    lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 23
+    lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 24
                                     + [ctypes.c_int] * 16
                                     + [ctypes.c_void_p])
     lib.noc_step_shared_bytes.restype = ctypes.c_longlong
@@ -765,6 +770,7 @@ def plan_for(geom, trace=None, faults=None,
         0 if trace is None else trace[0].shape[1], cluster=cluster)
 
 
+@telemetry.spanned("noc_step.run_fused")
 def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
               warmup: int, starvation_limit: int, arb_iters: int,
               trace=None, faults=None, fault_u: torch.Tensor | None = None,
@@ -783,43 +789,55 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
     node-local, and ``cand`` / ``intab`` list every queue arriving at a
     node; ``core.sim`` asserts the first for every route table it builds):
     the kernel scatters where the twin gathers over those tables.
+
+    Each launch adds to its modes' ``noc_step.launches[...]`` counters.
+    While telemetry is on, the launch runs the kernel with its counters
+    (SM cycles of each CTA's barrier waits and of its whole cycle loop, a
+    [B, C, 2] int64 buffer) and keeps them as a ``noc_step.clock`` kernel
+    record; the host work before the launch is the ``noc_step.prepare``
+    span.
     """
-    dev = inj_s.device
-    if dev.type != "cuda":
-        raise ValueError(
-            f"run_fused launches the CUDA kernel and takes CUDA tensors, "
-            f"got {dev}; run_plain runs the plain twin on any device")
-    _check_inputs(geom, inj_s, dst_s, trace, faults, fault_u)
-    _check_narrow(geom, starvation_limit)
-    cluster, _ = plan_for(geom, trace, faults, cluster_size)
-    batch, cycles, p_pes = inj_s.shape
-    lp1 = geom.route.shape[0]
-    np1 = geom.cand.shape[0]
-    n_phases = 0 if trace is None else trace[0].shape[1]
-    n_faults = 0 if faults is None else faults[0].shape[1]
-    lib = load_library()
-    i32 = dict(dtype=torch.int32, device=dev)
-    q_len = torch.empty((batch, lp1), **i32)
-    m_scal = torch.empty((batch, N_SCALARS), **i32)
-    m_kind = torch.empty((batch, N_KIND_ROWS, 8), **i32)
-    passes = torch.empty((batch,), **i32)
-    ph_done = torch.empty((batch, n_phases), **i32)
-    lay = layout(geom, cluster)
-    route = geom.route
-    if lay.rows is not None:
-        # The route table in the kernel's order: its rows, and the ids it
-        # holds (-1 stays -1); the fault entries' queue ids likewise.
-        hop = geom.route[lay.rows].long()
-        route = torch.where(hop >= 0, lay.row_at[hop.clamp(min=0)],
-                            -1).to(torch.int16)
-        if faults is not None:
-            faults = (lay.row_at[faults[0].long()].to(torch.int32),
-                      *faults[1:])
-    ph_ptrs = (0, 0, 0) if trace is None else tuple(
-        t.data_ptr() for t in trace)
-    f_ptrs = (0, 0, 0, 0) if faults is None else (
-        fault_u.data_ptr(), *(t.data_ptr() for t in faults))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    with telemetry.span("noc_step.prepare"):
+        dev = inj_s.device
+        if dev.type != "cuda":
+            raise ValueError(
+                f"run_fused launches the CUDA kernel and takes CUDA tensors, "
+                f"got {dev}; run_plain runs the plain twin on any device")
+        _check_inputs(geom, inj_s, dst_s, trace, faults, fault_u)
+        _check_narrow(geom, starvation_limit)
+        cluster, _ = plan_for(geom, trace, faults, cluster_size)
+        batch, cycles, p_pes = inj_s.shape
+        lp1 = geom.route.shape[0]
+        np1 = geom.cand.shape[0]
+        n_phases = 0 if trace is None else trace[0].shape[1]
+        n_faults = 0 if faults is None else faults[0].shape[1]
+        lib = load_library()
+        i32 = dict(dtype=torch.int32, device=dev)
+        q_len = torch.empty((batch, lp1), **i32)
+        m_scal = torch.empty((batch, N_SCALARS), **i32)
+        m_kind = torch.empty((batch, N_KIND_ROWS, 8), **i32)
+        passes = torch.empty((batch,), **i32)
+        ph_done = torch.empty((batch, n_phases), **i32)
+        lay = layout(geom, cluster)
+        route = geom.route
+        if lay.rows is not None:
+            # The route table in the kernel's order: its rows, and the ids it
+            # holds (-1 stays -1); the fault entries' queue ids likewise.
+            hop = geom.route[lay.rows].long()
+            route = torch.where(hop >= 0, lay.row_at[hop.clamp(min=0)],
+                                -1).to(torch.int16)
+            if faults is not None:
+                faults = (lay.row_at[faults[0].long()].to(torch.int32),
+                          *faults[1:])
+        ph_ptrs = (0, 0, 0) if trace is None else tuple(
+            t.data_ptr() for t in trace)
+        f_ptrs = (0, 0, 0, 0) if faults is None else (
+            fault_u.data_ptr(), *(t.data_ptr() for t in faults))
+        # The kernel's barrier-wait and cycle-loop clocks of each CTA, only
+        # while telemetry is on (a null pointer turns them off).
+        clock = (torch.empty((batch, cluster, 2), dtype=torch.int64,
+                             device=dev) if telemetry.is_on() else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.noc_step_launch(
         inj_s.data_ptr(), dst_s.data_ptr(), route.data_ptr(),
         lay.kind.data_ptr(), lay.prio.data_ptr(), lay.cap.data_ptr(),
@@ -827,13 +845,15 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
         lay.inj_pe.data_ptr(), lay.contends.data_ptr(), lay.orig.data_ptr(),
         q_len.data_ptr(), m_scal.data_ptr(), m_kind.data_ptr(),
         passes.data_ptr(), *ph_ptrs, ph_done.data_ptr(), *f_ptrs,
-        batch, lp1, p_pes, np1, geom.depth, cycles, warmup,
-        starvation_limit, arb_iters, 1 if diagnostics else 0,
-        score_pow2(lp1), n_phases, 1 if strict_barrier else 0,
-        watchdog, n_faults, cluster, stream)
+        0 if clock is None else clock.data_ptr(), batch, lp1, p_pes, np1,
+        geom.depth, cycles, warmup, starvation_limit, arb_iters,
+        1 if diagnostics else 0, score_pow2(lp1), n_phases,
+        1 if strict_barrier else 0, watchdog, n_faults, cluster, stream)
     LIBRARY.check(err)
     for mode in launch_modes(trace, faults):
-        mode_launches[mode] += 1
+        telemetry.count(LAUNCH_COUNTERS[mode])
+    telemetry.kernel("noc_step.clock", cluster=cluster, cycles=cycles,
+                     clock=clock)
     if lay.rows is not None:
         q_len = q_len[:, lay.row_at]
     return q_len, m_scal, m_kind, passes, ph_done

@@ -63,23 +63,23 @@ def test_cluster_plan_matches_a_hand_computed_layout():
              + 14_096              # head, two slots      2 x 1 761 * 4
              + 3 * 7056            # score, src_of, score_nc  1 761 * 4
              + 14_416              # best, three slots    3 x 1 201 * 4
-             + 84 * 4)             # control block
+             + 88 * 4)             # control block
     int16 = 10 * 3536              # nxt, nphys, wait, phys, prio, inj_pe,
     #                                the active list, nphys_nc, dst_v, orig
     bytes8 = 6 * 1776 + 3536       # q_len, cap, stat, room_nc, q_head,
     #                                inj_v; flags, two slots
-    assert int32 + int16 + bytes8 == 155_920
-    assert t_noc.cluster_plan(1761, 1201, 8, 256, 0, 0) == (1, 155_920)
+    assert int32 + int16 + bytes8 == 155_936
+    assert t_noc.cluster_plan(1761, 1201, 8, 256, 0, 0) == (1, 155_936)
     # trace mode adds the per-PE sent counts and two words per phase, fault
     # mode four words per entry, each array rounded up to 16 bytes
     assert t_noc.cluster_plan(1761, 1201, 8, 256, 3, 5) == (
-        1, 155_920 + 256 * 4 + 2 * 32 + 4 * 16)
+        1, 155_936 + 256 * 4 + 2 * 32 + 4 * 16)
     # a cluster splits rows and channels evenly, rounding up: ring_mesh_1024
     # needs three CTAs of 2 369 rows and 1 611 channels
-    assert t_noc.cluster_plan(7105, 4833, 8, 1024, 0, 0) == (3, 209_488)
+    assert t_noc.cluster_plan(7105, 4833, 8, 1024, 0, 0) == (3, 209_504)
     assert t_noc.shared_bytes(2369, 1611, 8, 1024, 0, 0) == (
-        2369 * 32 + 18_960 + 3 * 9488 + 19_344 + 336 + 10 * 4752
-        + 6 * 2384 + 4752) == 209_488
+        2369 * 32 + 18_960 + 3 * 9488 + 19_344 + 352 + 10 * 4752
+        + 6 * 2384 + 4752) == 209_504
 
 
 @pytest.mark.parametrize("family", ["ring_mesh", "flat_mesh"])
@@ -422,6 +422,50 @@ def test_noc_step_at_1024_pes_matches_twin(card):
     want = t_noc.run_plain(geom, inj, dst, **opts)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 3])
+def test_noc_step_counters(card, cluster):
+    """The kernel's counters: off (telemetry off, a null clock pointer)
+    the launch writes no clock and keeps no record; on, its outputs are
+    the same, and each CTA's barrier-wait cycles lie between 0 and the
+    cycles of its whole loop.  Through the simulator, the kernel's passes
+    of a 64-PE point equal the twin's."""
+    from repro_torch import telemetry
+
+    topo, geom = _geometry("ring_mesh", 64, device=card)
+    cfgs = [sim.SimConfig(inj_rate=0.9, seed=5, cycles=300, warmup=40)]
+    inj, dst, opts = _operands(topo, geom, cfgs)
+    telemetry.drain()
+    off = t_noc.run_fused(geom, inj, dst, cluster_size=cluster, **opts)
+    torch.cuda.synchronize()
+    assert telemetry.drain()["kernels"] == []
+    telemetry.enable()
+    try:
+        on = t_noc.run_fused(geom, inj, dst, cluster_size=cluster, **opts)
+        torch.cuda.synchronize()
+    finally:
+        telemetry.disable()
+    [rec] = telemetry.drain()["kernels"]
+    for x, y in zip(on, off):
+        assert torch.equal(x, y)
+    assert rec["name"] == "noc_step.clock" and rec["cluster"] == cluster
+    clock = np.array(rec["clock"])
+    assert clock.shape == (1, cluster, 2)
+    assert (clock[..., 0] > 0).all() and (clock[..., 0] < clock[..., 1]).all()
+
+    passes = {}
+    telemetry.enable()
+    try:
+        for backend in ("cuda", "torch"):
+            sim.run_batch(topo, [dataclasses.replace(cfgs[0], backend=backend,
+                                                     device="cuda")])
+            passes[backend] = [k["passes"] for k in telemetry.drain()[
+                "kernels"] if k["name"] == "noc_step.passes"]
+    finally:
+        telemetry.disable()
+    assert passes["cuda"] == passes["torch"] and passes["cuda"][0][0] >= 300
 
 
 # The CPU tests' SSD matrix (tests/test_torch_attention_ssd.py, after the

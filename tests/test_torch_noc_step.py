@@ -19,6 +19,7 @@ from repro.core import sim as r_sim
 from repro.core import spec as r_spec
 from repro.core import topology as r_topo
 from repro.kernels import noc_step as r_noc
+from repro_torch import telemetry
 from repro_torch.core import sim as t_sim
 from repro_torch.kernels import noc_step as t_noc
 
@@ -113,11 +114,11 @@ def test_run_fused_on_cpu_runs_the_twin():
     launched and nothing is counted."""
     geom = _carried(r_sim.build_geometry(r_topo.build("flat_mesh", 16)))
     inj, dst = _streams(16, 40, 0.5, seed=1, batch=2)
-    t_noc.reset_launches()
+    telemetry.drain()
     with pytest.raises(ValueError, match="run_plain"):
         t_noc.run_fused(geom, torch.from_numpy(inj), torch.from_numpy(dst),
                         **KW)
-    assert not any(t_noc.mode_launches.values())  # no kernel ran
+    assert not any(t_noc.launches().values())  # no kernel ran
     out = t_noc.run_plain(geom, torch.from_numpy(inj), torch.from_numpy(dst),
                           **KW)
     assert out[4].shape == (2, 0)  # statistical traffic: no phases
