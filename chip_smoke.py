@@ -6,7 +6,7 @@ distribution layer) on one NVIDIA card.
 
 Runs from a checkout of the repository, needs one CUDA device and nvcc,
 and imports nothing of jax or of the JAX reference package.  It builds the
-port's three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+port's four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
 each, started together) and runs twenty phases; any failure raises and
 exits non-zero.
 
@@ -32,7 +32,11 @@ exits non-zero.
    at once and the share of route hops that cross CTAs), the twin's time
    on the card, and the least time the card could take for the same work;
    each launch's output equals the twin's.  Then each launch held to one
-   arbitration pass a cycle, and split over 8 CTAs.
+   arbitration pass a cycle, and split over 8 CTAs.  Then the streams
+   kernel against its plain version on the card, bit for bit in all three
+   outputs, on the paper's grid (12 points at 1024 PEs x 1500 cycles) and
+   on the same points with 8 fault entries each: its launch and the plain
+   version timed, beside the least time its hashes' instructions take.
 5. Trace replay at full width: the recipe of ``benchmarks/trace_replay.py``
    (the three mined collective schedules, 64/256/1024 PEs, both families,
    ``src_queue_depth=8``, injection rate 1.0, seed 1) through
@@ -190,7 +194,7 @@ Launch counts are zeroed just before each of phases 3, 5, 6, 9, 11,
 12's ``verify=True`` grid and ``measure_repair`` runs, each model's run
 in phases 13-18, phase 19's training and phase 20's gradients and
 serving, and read just after (by mode
-for noc_step).  Phases
+for noc_step; phase 3 also counts the streams kernel's launches).  Phases
 5 and 6 split their host wall clock into its stages (topology builds,
 device geometry, streams and operands, the kernel, the reachability
 walk, the rest), phase 9 its forward's into the two kernels and the
@@ -227,6 +231,7 @@ SOURCES = {
     "noc_step[faults]": "src/repro_torch/kernels/csrc/noc_step.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "streams": "src/repro_torch/kernels/csrc/streams.cu",
 }
 REPLACES = {
     "noc_step": "src/repro/kernels/noc_step.py:371",
@@ -235,6 +240,8 @@ REPLACES = {
     "noc_step[faults]": "src/repro/kernels/noc_step.py:232-241,506-525",
     "flash_attention": "src/repro/kernels/flash_attention.py:29",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:32",
+    # no Pallas kernel: the reference draws its streams with jax.random
+    "streams": "src/repro/core/sim.py:532-553",
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bound: device
@@ -245,6 +252,12 @@ SCALAR_OPS_PER_S = 67e12
 # The dense bf16 tensor-core peak: the bound of the model zoo's kernels,
 # whose inputs on the main path are bfloat16.
 BF16_OPS_PER_S = 989e12
+# Instruction throughput, the bound of the streams kernel's integer hashing:
+# 132 SMs, each with 4 schedulers that dispatch one 32-thread instruction a
+# clock, at the 1.98 GHz boost clock.  A Threefry-2x32 hash takes at least
+# 60 (20 rounds of an add, a funnel shift and a xor).
+INSTRUCTIONS_PER_S = 132 * 4 * 32 * 1.98e9
+HASH_INSTRUCTIONS = 60
 
 CARD = ""  # "name, power limit" as nvidia-smi reports them
 
@@ -325,7 +338,8 @@ def clocked_targets():
 # ---------------------------------------------------------------------------
 def phase_device():
     global CARD
-    from repro_torch.kernels import flash_attention, noc_step, ssd_scan
+    from repro_torch.kernels import flash_attention, noc_step, ssd_scan, \
+        streams
     CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -336,13 +350,13 @@ def phase_device():
            f"count {torch.cuda.device_count()}")
     # One nvcc per source, all started together.
     t0 = time.perf_counter()
-    mods = (noc_step, flash_attention, ssd_scan)
+    mods = (noc_step, flash_attention, ssd_scan, streams)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         futures = [pool.submit(m.load_library) for m in mods]
         for f in futures:
             f.result()
-    say(1, f"noc_step, flash_attention and ssd_scan kernels built and "
-           f"loaded in {time.perf_counter() - t0:.3f} s")
+    say(1, f"noc_step, flash_attention, ssd_scan and streams kernels built "
+           f"and loaded in {time.perf_counter() - t0:.3f} s")
     for m in mods:
         for line in m.LIBRARY.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -489,7 +503,7 @@ def main_path_experiments():
 def phase_main_path():
     from repro_torch import telemetry
     from repro_torch.core.experiment import run_experiments
-    from repro_torch.kernels import noc_step
+    from repro_torch.kernels import noc_step, streams
 
     exps, ref = main_path_experiments()
     telemetry.drain()
@@ -498,10 +512,13 @@ def phase_main_path():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = noc_step.launches()[noc_step.STATISTICAL]
+    draws = streams.launches()
     say(3, f"run_experiments: {len(exps)} points, {launches} noc_step "
-           f"launches, {wall:.3f} s host wall clock incl. geometry and "
-           f"stream setup [{CARD}]")
+           f"launches, {draws[streams.FUSED]} stream kernel launches, "
+           f"{wall:.3f} s host wall clock incl. geometry and stream setup "
+           f"[{CARD}]")
     assert launches > 0, "the main path never launched the kernel"
+    assert draws == {streams.FUSED: launches, streams.PLAIN: 0}, draws
     check_main_path(exps, reports, ref)
     say(3, f"all {len(reports)} SimResults equal the reference's "
            f"(jax {ref['jax_version']}) field for field")
@@ -521,7 +538,7 @@ def phase_main_path():
                    f"{r0.power.activity:.4f}, {r0.experiment.traffic.kind})"
                    f" | area {r0.area.lut} LUT | diameter "
                    f"{r0.analytic.diameter}")
-    return launches
+    return launches, draws[streams.FUSED]
 
 
 def check_main_path(exps, reports, ref) -> None:
@@ -690,6 +707,67 @@ def phase_times():
     for topo, cfgs in groups:
         variant_times(topo, cfgs)
     return summed(rows)
+
+
+def streams_bound_ms(points, cycles: int) -> tuple[float, str]:
+    """Least time for one launch of the streams kernel over ``points``:
+    the larger of the bytes it moves (its table in, the streams out) over
+    the memory rate and the instructions of its hashes over the
+    instruction rate.  An element takes 6 hashes (injection 1, locality
+    1, ringlet 2, block 2), 8 on a point of uniform destinations (the
+    offset 2); a fault draw takes 1."""
+    from repro_torch.kernels import streams
+    p, n_faults = len(points[0].perm_dst), points[0].fault_links.shape[0]
+    hashes = sum(cycles * (p * (6 if pt.use_perm else 8) + n_faults)
+                 for pt in points)
+    nbytes = len(points) * (cycles * (p * 3 + n_faults * 4) + 4 * (p + streams.HEADER))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = hashes * HASH_INSTRUCTIONS / INSTRUCTIONS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_stream_times(reps: int = 20) -> dict:
+    """The streams kernel against its plain version on the card, bit for
+    bit, on the paper's grid (12 points at 1024 PEs x 1500 cycles, each
+    with its own seed) and on the same points carrying 8 fault entries;
+    the kernel's launch and the plain version timed with CUDA events."""
+    from repro_torch.configs.ringmesh_noc import CONFIG
+    from repro_torch.core import sim
+    from repro_torch.kernels import streams
+
+    seeds = [1, 0, 2**31 - 1, -1, -2**31, 7, 1234567, -98765, 26, 3, 42, 5]
+    exps = CONFIG.experiments(sizes=(1024,), families=("ring_mesh",))
+    assert len(exps) == len(seeds), len(exps)
+    healthy = [sim.make_point(dataclasses.replace(e.sim_config(), seed=s),
+                              1024) for e, s in zip(exps, seeds)]
+    faulted = [dataclasses.replace(
+        pt, fault_links=np.zeros(8, np.int32),
+        fault_drop_p=np.zeros(8, np.float32),
+        fault_onset=np.zeros(8, np.int32)) for pt in healthy]
+    dev, cycles = torch.device("cuda"), CONFIG.cycles
+    rows = {}
+    for label, points in (("grid", healthy), ("grid, F = 8", faulted)):
+        got = streams.draw(points, 1024, cycles, dev)
+        want = sim._draw_streams_plain(points, 1024, cycles, dev)
+        assert torch.equal(got[0], want[0]), label
+        assert torch.equal(got[1], want[1]), label
+        assert (got[2] is None) == (want[2] is None), label
+        if want[2] is not None:
+            assert torch.equal(got[2].view(torch.int32),
+                               want[2].view(torch.int32)), label
+        table = torch.from_numpy(streams.point_table(points, 1024)).to(dev)
+        ms = event_ms(lambda: streams.launch(table, *got), reps)
+        plain_ms = event_ms(lambda: sim._draw_streams_plain(
+            points, 1024, cycles, dev), 1)
+        b_ms, by = streams_bound_ms(points, cycles)
+        rows[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": by, "err": 0.0}
+        say(4, f"streams kernel, {label}: {len(points)} points x {cycles} "
+               f"cycles x 1024 PEs, kernel == plain version in all three "
+               f"outputs | kernel {ms:.4f} ms/launch, plain version on the "
+               f"card {plain_ms:.1f} ms | bound {b_ms:.4f} ms ({by}; "
+               f"{100 * b_ms / ms:.1f} % of it) [{CARD}]")
+    return rows["grid"]
 
 
 def variant_times(topo, cfgs, reps: int = 3) -> None:
@@ -3061,8 +3139,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     err = phase_parity()
-    launches = {noc_step.STATISTICAL: phase_main_path()}
+    stat_launches, stream_launches = phase_main_path()
+    launches = {noc_step.STATISTICAL: stat_launches,
+                "streams": stream_launches}
     stat = phase_times()
+    stream_stat = phase_stream_times()
     say(4, f"main path: {launches[noc_step.STATISTICAL]} launches, kernel "
            f"{stat['ms']:.3f} ms in all, twin {stat['plain_ms']:.1f} ms, "
            f"bound {stat['bound_ms']:.4f} ms [{CARD}]")
@@ -3085,6 +3166,7 @@ def main() -> int:
                f"{timed[mode]['plain_ms']:.1f} ms, bound "
                f"{timed[mode]['bound_ms']:.4f} ms [{CARD}]")
     timed[noc_step.STATISTICAL] = stat
+    timed["streams"] = stream_stat
     timed.update(phase_kernels())
     model_launches, cfg, params = phase_scoring()
     launches.update(model_launches)
@@ -3115,7 +3197,7 @@ def main() -> int:
     phase_dryrun()
     say(21, f"whole run {time.perf_counter() - t0:.1f} s")
     names = (noc_step.STATISTICAL, noc_step.TRACE, noc_step.FAULTS,
-             "flash_attention", "ssd_scan")
+             "flash_attention", "ssd_scan", "streams")
     record = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],

@@ -20,7 +20,8 @@ loop as one launch of the hand-written CUDA kernel, ``"torch"`` loops the
 plain twin ``cycle_step`` on ``SimConfig.device``.  Both keep every
 accumulator in int32, so they agree bit for bit with each other and with
 the reference for the same configuration and seed: the random streams are
-the reference's own (``core.prng`` reproduces ``jax.random``).
+the reference's own (``core.prng`` reproduces ``jax.random``; on a CUDA
+device ``kernels.streams`` draws a whole batch's in one launch).
 
 ``backend="cuda"`` runs on a CUDA device or raises; it never falls back to
 the CPU or to the twin.  Both backends run the reference's three modes:
@@ -43,7 +44,7 @@ from repro_torch.core import prng
 from repro_torch.core import topology as topo_mod
 from repro_torch.core import traffic
 from repro_torch.faults.spec import FaultSpec
-from repro_torch.kernels import noc_step
+from repro_torch.kernels import noc_step, streams
 
 BACKENDS = ("torch", "cuda")
 
@@ -488,8 +489,27 @@ def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
     fault entries (all of a batch carry the same count F) — the fault
     draws [B, cycles, F] float32, else None.  Faulted points split their
     key six ways, healthy points five, as the reference does, so healthy
-    streams are the same with or without faults in the grid."""
+    streams are the same with or without faults in the grid.
+
+    On a CUDA device one launch of the streams kernel
+    (``kernels.streams.draw``) draws the whole batch; on any other device
+    the plain version, ``_draw_streams_plain``, loops over the points.
+    Both give the same bits; ``kernels.streams.launches()`` counts the
+    batches each path drew."""
     dev = torch.device(device)
+    n_faults = points[0].fault_links.shape[0]
+    if any(pt.fault_links.shape[0] != n_faults for pt in points):
+        raise ValueError("points of one batch must share a fault count")
+    telemetry.count("streams.points", len(points))
+    if dev.type == "cuda":
+        return streams.draw(points, n_pes, cycles, dev)
+    return _draw_streams_plain(points, n_pes, cycles, dev)
+
+
+def _draw_streams_plain(points: list[SweepPoint], n_pes: int, cycles: int,
+                        dev: torch.device):
+    """``draw_streams`` in plain tensor code over ``core.prng``, one point
+    at a time: the CPU's path and the streams kernel's oracle."""
     P = n_pes
     shape = (cycles, P)
     pes = torch.arange(P, dtype=torch.int32, device=dev)
@@ -498,9 +518,7 @@ def draw_streams(points: list[SweepPoint], n_pes: int, cycles: int,
     blk_base = pes - pes % pk.PES_PER_BLOCK
     pos_blk = pes % pk.PES_PER_BLOCK
     n_faults = points[0].fault_links.shape[0]
-    if any(pt.fault_links.shape[0] != n_faults for pt in points):
-        raise ValueError("points of one batch must share a fault count")
-    telemetry.count("streams.points", len(points))
+    telemetry.count(streams.LAUNCH_COUNTERS[streams.PLAIN])
     inj_all, dst_all, fu_all = [], [], []
     for pt in points:
         if n_faults:

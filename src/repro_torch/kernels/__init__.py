@@ -8,6 +8,9 @@
                          ``csrc/flash_attention.cu``
     ssd_scan.py        — the Mamba-2 SSD chunked scan: ``plain`` and the
                          CUDA kernel in ``csrc/ssd_scan.cu``
+    streams.py         — the simulator's random streams for a batch of
+                         points in one launch of ``csrc/streams.cu``
+                         (plain version: ``core.sim._draw_streams_plain``)
     ref.py             — the model zoo's plain oracles
     ops.py             — the model's ``"torch" | "cuda"`` switch
     build.py           — nvcc at first use, ctypes loading
