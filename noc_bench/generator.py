@@ -13,7 +13,9 @@ a file of its own, ``entries/<entry>.py``, found by that name.  It gives:
 * ``reference(request, device, precision="float32") -> dict``: the plain
   reference's outputs, in ``program.outputs``' form;
 * ``work(request)``: simulated PE-cycles; ``points(request)``: simulated
-  points (or legs).
+  points (or legs);
+* optionally ``warmups(gen) -> list[dict]``: the set-up's requests, where
+  one request does not run every shape the window sends.
 
 ``locality`` and ``budget`` of a mix are ``"config"`` (the
 configuration's own) or explicit values.  Every point seed and fault
@@ -86,3 +88,8 @@ class Generator:
 
     def warmup(self) -> dict:
         return self.entry.request(self, _rng(self.seed, 0), 0)
+
+    def warmups(self) -> list[dict]:
+        """The set-up's requests: the entry's own, else ``warmup()``."""
+        own = getattr(self.entry, "warmups", None)
+        return own(self) if own is not None else [self.warmup()]

@@ -11,6 +11,12 @@ elapsed time.  A mix's ``entry`` is a file of its own,
 device memory is read, the program's state freed, and a sample of the
 window's requests drawn from the seed is worked out again by the plain
 reference and compared.
+
+A traced run also turns the program's own telemetry on for its ``spans``
+and ``profiled`` requests (``program_trace.Adapter``) and keeps what it
+drained under the record's ``program_spans``, ``program_counters``,
+``program_kernels`` and ``program_profile``; an untraced run never turns
+it on.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import traceback
 import numpy as np
 import torch
 
-from . import check, generator, program, tracing
+from . import check, generator, program, program_trace, tracing
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -76,10 +82,13 @@ def forbidden_modules() -> list[str]:
 
 def run(workload: str, seed: int, seconds: float, traced: bool, *,
         t0: float, device: str = "cuda", backend: str = "cuda",
-        config: dict | None = None, mix: dict | None = None) -> dict:
+        config: dict | None = None, mix: dict | None = None,
+        clock=time.perf_counter, keep: dict | None = None) -> dict:
     """The result line of one run (``correct`` and the check's numbers
-    under ``check``).  ``config`` and ``mix`` replace the cell's files, and
-    ``device`` / ``backend`` the card, in the CPU tests only."""
+    under ``check``).  ``config`` and ``mix`` replace the cell's files,
+    ``device`` / ``backend`` the card, and ``clock`` the window's clock,
+    in the CPU tests only; ``keep`` receives the run's record under
+    ``"record"``."""
     man = manifest()
     wl, cfg_entry = cell(man, workload)
     if config is None:
@@ -94,21 +103,24 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
     gen = generator.Generator(config, mix, seed)
     entry = gen.entry
     probes = tracing.Probes(mods, traced, sync)
+    adapter = program_trace.Adapter() if traced else None
     prof = None
     try:
         probes.captured = program.Captured()
-        entry.run(gen.warmup(), probes.captured, backend, device)
+        for req in gen.warmups():
+            entry.run(req, probes.captured, backend, device)
         sync()
         probes.clear()
         setup_s = time.perf_counter() - t0
 
         records, done = [], []
-        prof = Slice(on_card, seconds) if traced else None
+        prof = Slice(on_card, seconds, clock) if traced else None
 
         def step(i: int, now: float) -> None:
             req = gen.request(i)
             if prof is not None:
                 probes.mode = prof.enter(now)
+                adapter.begin(i, probes.mode)
             cap = program.Captured()
             probes.captured, probes.request = cap, i
             t = time.perf_counter()
@@ -120,6 +132,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             except Exception:  # an answer that never comes
                 traceback.print_exc()
                 ok = False
+            if adapter is not None:
+                adapter.end()
             records.append(dict(index=i, ok=ok, mode=probes.mode,
                                 latency_s=time.perf_counter() - t,
                                 work=entry.work(req) if ok else 0,
@@ -127,12 +141,14 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             if ok:
                 done.append((req, cap))
 
-        elapsed = window(step, seconds,
+        elapsed = window(step, seconds, clock,
                          after=prof.leave if prof is not None else None,
                          pending=prof.pending if prof is not None else None)
         sync()
     finally:
         probes.remove()
+        if adapter is not None:
+            adapter.end()
         if prof is not None:
             prof.close()
     failed = sum(not r["ok"] for r in records)
@@ -142,6 +158,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
     record = dict(setup_s=setup_s, elapsed_s=elapsed, requests=records,
                   launches=probes.launch_records() if traced else [],
                   profile=profile, **probes.totals())
+    if adapter is not None:
+        record.update(adapter.read(prof.prof))
+    if keep is not None:
+        keep["record"] = record
     metrics = {}
     for m in metrics_of(man, workload, traced):
         value = reader(m["name"])(record)
@@ -153,6 +173,12 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             if lat:
                 print(f"{mode} requests: {len(lat)}, mean latency "
                       f"{sum(lat) / len(lat):.4f} s", file=sys.stderr)
+            runs = [s for s in record["launches"] if s["mode"] == mode]
+            if runs:
+                us = 1e6 * (sum(s["device_s"] for s in runs)
+                            / sum(s["cycles"] for s in runs))
+                print(f"{mode} launches: {len(runs)}, {us:.3f} us a "
+                      "cycle", file=sys.stderr)
 
     program.free()
     del probes

@@ -5,7 +5,7 @@ Only this module imports the program (``repro_torch``), and only inside
 its functions; the entries (``entries/<name>.py``) reach the program
 through it.  A request is handed to the program as the objects a
 researcher's script builds (``TopologySpec``, ``Experiment``, ``Budget``,
-``FaultSpec``) and nothing else: the program derives every table and
+``FaultSpec``, a ``Trace`` from a schedule census) and nothing else: the program derives every table and
 stream itself.
 """
 from __future__ import annotations
@@ -21,9 +21,12 @@ def modules():
     from repro_torch.faults import repair
     from repro_torch.faults.spec import FaultSpec
     from repro_torch.kernels import noc_step
+    from repro_torch.trace import extract
+    from repro_torch.trace.spec import Trace
     return dict(fabric=fabric, experiment=experiment, sim=sim,
                 traffic=traffic, TopologySpec=TopologySpec, repair=repair,
-                FaultSpec=FaultSpec, noc_step=noc_step)
+                FaultSpec=FaultSpec, noc_step=noc_step, extract=extract,
+                Trace=Trace)
 
 
 def load(backend: str) -> None:

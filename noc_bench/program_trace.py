@@ -3,10 +3,11 @@ its spans, counters and kernel records, tagged by request, and the
 profiled slice's device operations and idle gaps attributed to the
 program's spans.
 
-``Adapter`` turns telemetry on for a traced window's ``spans`` and
-``profiled`` requests only (so ``quiet`` requests, which ``job_mfu``
-reads, and every untraced run stay as they are) and drains it after each
-request.  ``read(prof)`` gives the run record's new keys:
+``harness.run`` makes an ``Adapter`` for a traced run.  It turns telemetry
+on for the window's ``spans`` and ``profiled`` requests only (so ``quiet``
+requests, which ``job_mfu`` and the kernel's time a cycle read, and every
+untraced run stay as they are) and drains it after each request.
+``read(prof)`` gives the run record's keys:
 
 * ``program_spans``: each span (name, id, parent, request, start and end
   in ns on the profiler's clock) with its request's ``mode``;
@@ -19,20 +20,19 @@ request.  ``read(prof)`` gives the run record's new keys:
   gap, ``harness`` outside them all) and ``unattributed`` (operations
   whose launch call the trace did not hold).
 
-The harness does not call it yet: that takes a few lines in
-``harness.run`` (``begin`` / ``end`` around each request, ``read`` into
-the record) and the ``METRICS`` entries in ``BENCHMARK.json``.  Until
-then this file is a tool that runs one cell as the harness does, with
-those calls hooked in from outside, and prints its result line with the
-eight metrics that read the new keys (``metrics/<name>.py``)::
+A metric reader (``metrics/<name>.py``) takes a span or a counter from
+these keys by name: ``span_seconds`` (self and total seconds of a span
+name), ``span_ms`` (each span's milliseconds) and ``counted`` (a
+counter's total).
+
+Run as a tool, it runs one cell traced, as the benchmark does, prints the
+result line, and on standard error the split the telemetry shows: for
+the ``spans`` requests, each span's self time a request and the
+counters; for the slice, its idle seconds and device operations by
+program span::
 
     python3 noc_bench/program_trace.py --workload ring_mesh-1024.paper_grid \\
         --seed 7 --seconds 51
-
-Standard error gets, for the ``spans`` requests, each span's self time a
-request; for the slice, its idle seconds by program span; and each
-mode's mean latency and the kernel's microseconds a cycle (counters off
-in ``quiet`` requests, on in the others).
 """
 from __future__ import annotations
 
@@ -43,33 +43,10 @@ T0 = time.perf_counter()
 import argparse  # noqa: E402
 import bisect  # noqa: E402
 import collections  # noqa: E402
-import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
-# The per-layer entries that read this file's keys, as BENCHMARK.json
-# would list them.
-_ALL = ["ring_mesh-1024.paper_grid", "flat_mesh-1024.paper_grid",
-        "ring_mesh-1024.resilience"]
-METRICS = [dict(name=n, unit=u, better="lower", source=s, layer=lay,
-                moves="sim_rate", workloads=w) for n, u, s, lay, w in (
-    ("streams.draw_ms_per_point", "ms", "program_span",
-     "stream pregeneration", _ALL),
-    ("streams.device_ops_per_point", "ops", "device_trace",
-     "stream pregeneration", _ALL),
-    ("noc_step.passes_per_cycle", "passes", "program_counter",
-     "noc_step kernel", _ALL),
-    ("noc_step.barrier_wait_share", "%", "program_counter",
-     "noc_step kernel", _ALL),
-    ("noc_step.host_prep_ms_per_launch", "ms", "program_span",
-     "noc_step kernel", _ALL),
-    ("geometry.ms_per_batch", "ms", "program_span",
-     "geometry and route tables", _ALL),
-    ("experiment.report_ms_per_point", "ms", "program_span",
-     "experiment front and reports", _ALL),
-    ("faults.reroute_ms_per_scenario", "ms", "program_span",
-     "faults and routing on the host", ["ring_mesh-1024.resilience"]))]
 TRACED = ("spans", "profiled")
 
 
@@ -134,7 +111,23 @@ def span_ms(run: dict, name: str, mode: str = "spans") -> list[float]:
             if s["name"] == name and s["mode"] == mode]
 
 
-def counted(run: dict, name: str, mode: str) -> int:
+def span_seconds(run: dict, name: str,
+                 mode: str = "spans") -> tuple[float, float] | None:
+    """Self and total seconds of the spans ``name`` of the ``mode``
+    requests (self: less their direct children), or None where there is
+    none."""
+    spans = [s for s in run.get("program_spans", ()) if s["mode"] == mode]
+    ids = {s["id"] for s in spans if s["name"] == name}
+    if not ids:
+        return None
+    total = sum(s["end_ns"] - s["start_ns"] for s in spans
+                if s["id"] in ids)
+    children = sum(s["end_ns"] - s["start_ns"] for s in spans
+                   if s["parent"] in ids)
+    return (total - children) / 1e9, total / 1e9
+
+
+def counted(run: dict, name: str, mode: str = "spans") -> int:
     """The counter ``name`` summed over the ``mode`` requests."""
     return sum(c["counters"].get(name, 0)
                for c in run.get("program_counters", ())
@@ -219,99 +212,43 @@ def attribute(events: list, spans: list[dict]) -> dict:
 
 
 # -- the tool -----------------------------------------------------------------
-@contextlib.contextmanager
-def hooked(adapter: Adapter, extra: dict):
-    """``harness.run`` with the adapter's calls hooked in: ``begin`` when a
-    traced window's request gets its mode, ``end`` after it, ``read``
-    into the record, and ``METRICS`` among the traced run's metrics.
-    ``extra`` receives each mode's kernel launches (device seconds and
-    cycles) for the tool's report."""
-    from noc_bench import harness, tracing
-    count = [0]
-    saved = [(harness.Slice, "enter"), (harness.Slice, "leave"),
-             (harness.Slice, "read"), (tracing.Probes, "totals"),
-             (harness, "metrics_of")]
-    orig = {attr: getattr(owner, attr) for owner, attr in saved}
-
-    def enter(self, now):
-        mode = orig["enter"](self, now)
-        adapter.begin(count[0], mode)
-        count[0] += 1
-        return mode
-
-    def leave(self, now, last):
-        adapter.end()
-        orig["leave"](self, now, last)
-
-    def read(self):
-        out = orig["read"](self)
-        adapter.read(self.prof)
-        return out
-
-    def totals(self):
-        for s in self.launch_records():
-            k = extra.setdefault(s["mode"], [0.0, 0])
-            k[0] += s["device_s"]
-            k[1] += s["cycles"]
-        return dict(orig["totals"](self), **adapter.read())
-
-    def metrics_of(man, workload, traced):
-        out = orig["metrics_of"](man, workload, traced)
-        return out + [m for m in METRICS if workload in m["workloads"]
-                      and traced]
-
-    new = dict(enter=enter, leave=leave, read=read, totals=totals,
-               metrics_of=metrics_of)
-    try:
-        for owner, attr in saved:
-            setattr(owner, attr, new[attr])
-        yield
-    finally:
-        for owner, attr in saved:
-            setattr(owner, attr, orig[attr])
-
-
 def run(workload: str, seed: int, seconds: float, traced: bool = True,
-        **kw) -> tuple[dict, Adapter, dict]:
-    """One run of ``harness.run`` with the adapter hooked in: its line,
-    the adapter (what it drained) and each mode's launches."""
+        **kw) -> tuple[dict, dict]:
+    """One run of ``harness.run``: its line and its record."""
     from noc_bench import harness
-    adapter, extra = Adapter(), {}
-    with hooked(adapter, extra):
-        line = harness.run(workload, seed, seconds, traced,
-                           t0=kw.pop("t0", time.perf_counter()), **kw)
-    return line, adapter, extra
+    keep = {}
+    line = harness.run(workload, seed, seconds, traced,
+                       t0=kw.pop("t0", time.perf_counter()), keep=keep, **kw)
+    return line, keep["record"]
 
 
-def report(adapter: Adapter, extra: dict, out=None) -> None:
+def report(record: dict, out=None) -> None:
     """The split the program's telemetry shows, on ``out`` (standard
     error)."""
     out = out or sys.stderr
-    tm = adapter.tm
-    spans = [s for s in adapter.spans if s["mode"] == "spans"]
+    spans = [s for s in record.get("program_spans", ())
+             if s["mode"] == "spans"]
     n = len({s["request"] for s in spans}) or 1
-    if tm is not None and spans:
-        own = tm.self_times(spans)
+    own = {name: span_seconds(record, name)[0]
+           for name in {s["name"] for s in spans}}
+    if own:
         print(f"self ms a request over {n} spans requests: " + ", ".join(
             f"{k} {1e3 * v / n:.3f}" for k, v in
             sorted(own.items(), key=lambda kv: -kv[1])), file=out)
     totals = collections.Counter()
-    for c in adapter.counters:
+    for c in record.get("program_counters", ()):
         if c["mode"] == "spans":
             totals.update(c["counters"])
     if totals:
         print("counters a request: " + ", ".join(
             f"{k} {v / n:.2f}" for k, v in sorted(totals.items())),
             file=out)
-    prof = adapter.profile
+    prof = record.get("program_profile")
     if prof:
         print("slice idle s by program span: " + ", ".join(
             f"{k} {v:.4f}" for k, v in prof["idle_gaps"]), file=out)
         print(f"slice device ops by program span: {prof['device_ops']}, "
               f"unattributed {prof['unattributed']}", file=out)
-    for mode, (dev_s, cycles) in sorted(extra.items()):
-        print(f"{mode} launches: {1e6 * dev_s / cycles:.3f} us a cycle "
-              f"over {cycles} cycles", file=out)
 
 
 def main() -> int:
@@ -330,9 +267,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 3
-    line, adapter, extra = run(args.workload, args.seed, args.seconds,
-                               t0=T0)
-    report(adapter, extra)
+    line, record = run(args.workload, args.seed, args.seconds, t0=T0)
+    report(record)
     print(json.dumps(line))
     return 0 if line["correct"] else 1
 

@@ -325,6 +325,14 @@ def run_plain(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
             trace=trace, faults=faults, strict_barrier=strict_barrier,
             watchdog=watchdog, idx=idx)
         passes += p
+        # A replay whose every phase is done and whose queues are empty
+        # injects, moves and counts nothing more: each later cycle leaves
+        # the outputs as they are and takes its one pass.
+        if (trace is not None and c % 32 == 31
+                and bool((state[5] >= n_phases).all())
+                and not bool(state[1].any())):
+            passes += cycles - 1 - c
+            break
     ph_done = (state[8] if trace is not None else torch.zeros(
         (batch, 0), dtype=torch.int32, device=inj_s.device))
     return state[1], state[3], state[4], passes, ph_done

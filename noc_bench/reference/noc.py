@@ -138,9 +138,12 @@ def draw_streams(points: list[dict], n_pes: int, cycles: int, n_faults: int,
 # -- a batch of points on one fabric -----------------------------------------
 def simulate(topo: topo_mod.Topology, points: list[dict], cycles: int,
              warmup: int, starvation_limit: int, device,
-             precision: str = "float32") -> list[dict]:
+             precision: str = "float32", trace=None) -> list[dict]:
     """The results of ``points`` (which share their dead links) on
-    ``topo``: the program's ``SimResult`` fields, one dict a point."""
+    ``topo``: the program's ``SimResult`` fields, one dict a point.
+    ``trace`` (phase destinations and flits, [n_phases, P] int32 each)
+    replays those phases at every point; its points draw their streams as
+    uniform traffic, which the phase tables then mask and redirect."""
     dead_links = points[0]["dead_links"]
     assert all(p["dead_links"] == dead_links for p in points)
     dev = torch.device(device)
@@ -152,15 +155,21 @@ def simulate(topo: topo_mod.Topology, points: list[dict], cycles: int,
         b = len(points)
         faults = tuple(torch.as_tensor(np.stack([a] * b), device=dev)
                        for a in (links, drop_p, onset))
-    inj_s, dst_s, fault_u = draw_streams(points, topo.n_pes, cycles,
-                                         n_faults, dev, precision)
+    inj_s, dst_s, fault_u = draw_streams(
+        [dict(p, pattern="uniform") if trace is not None else p
+         for p in points], topo.n_pes, cycles, n_faults, dev, precision)
+    phases = None
+    if trace is not None:
+        ph_dst, ph_flits = (torch.as_tensor(np.stack([a] * len(points)),
+                                            device=dev) for a in trace)
+        phases = (ph_dst, ph_flits, ph_flits.sum(dim=2, dtype=torch.int32))
     if faults is not None and precision != "float32":
         faults = (faults[0], faults[1].to(PRECISIONS[precision]).float(),
                   faults[2])
     ql, m_scal, _, _, ph_done = cycle.run_plain(
         geom, inj_s, dst_s, warmup=warmup,
         starvation_limit=starvation_limit, arb_iters=ARB_ITERS,
-        faults=faults, fault_u=fault_u)
+        trace=phases, faults=faults, fault_u=fault_u)
     in_flight = ql.sum(dim=1, dtype=torch.int64).cpu().numpy()
     m = m_scal.cpu().numpy()
     ph_done = ph_done.cpu().numpy()

@@ -22,8 +22,12 @@ GRID = dict(generator.load_json("traffic", "paper_grid"),
             patterns=["uniform", "transpose"], inj_rates=[0.25, 1.0])
 REPAIR = dict(generator.load_json("traffic", "resilience"),
               budget={"cycles": 150, "warmup": 0}, inj_rates=[0.1])
+# The replay at 64 PEs: each schedule's first phases within 150 cycles.
+REPLAY = dict(generator.load_json("traffic", "collectives"),
+              budget={"cycles": 150, "warmup": 0})
 CELLS = {"grid": ("ring_mesh-1024.paper_grid", "ring_mesh", GRID),
-         "repair": ("ring_mesh-1024.resilience", "ring_mesh", REPAIR)}
+         "repair": ("ring_mesh-1024.resilience", "ring_mesh", REPAIR),
+         "replay": ("ring_mesh-1024.collectives", "ring_mesh", REPLAY)}
 
 
 def run_cell(which: str) -> dict:
@@ -31,6 +35,20 @@ def run_cell(which: str) -> dict:
     return harness.run(name, 4_000_000_007, 0.3, False,
                        t0=time.perf_counter(), device="cpu",
                        backend="torch", config=small(family), mix=mix)
+
+
+def stepped_clock(monkeypatch, step: float = 0.25):
+    """A window clock that advances ``step`` seconds at each request the
+    generator draws, and not otherwise: a traced window then passes
+    through its modes at the same requests however fast the host runs."""
+    now = [0.0]
+    draw = generator.Generator.request
+
+    def request(self, i):
+        now[0] += step
+        return draw(self, i)
+    monkeypatch.setattr(generator.Generator, "request", request)
+    return lambda: now[0]
 
 
 def break_kernel(monkeypatch, how: str) -> None:
@@ -62,17 +80,38 @@ def break_kernel(monkeypatch, how: str) -> None:
     monkeypatch.setattr(noc_step, "run_plain", broken)
 
 
-def test_a_sound_run_is_correct():
-    line = run_cell("grid")
+@pytest.mark.parametrize("which", ["grid", "replay"])
+def test_a_sound_run_is_correct(which):
+    line = run_cell(which)
     assert line["correct"] and line["failed"] == 0, line["check"]
     assert line["requests_checked"] == 1
 
 
-@pytest.mark.parametrize("how", ["state_unchanged", "half_batch",
-                                 "answer_altered"])
-def test_a_broken_cycle_loop_is_not_correct(monkeypatch, how):
+@pytest.mark.parametrize("which,how", [
+    ("grid", "state_unchanged"), ("grid", "half_batch"),
+    ("grid", "answer_altered"), ("replay", "state_unchanged"),
+    ("replay", "answer_altered")])
+def test_a_broken_cycle_loop_is_not_correct(monkeypatch, which, how):
+    """A replay is a batch of one point, so it has no half to leave out."""
     break_kernel(monkeypatch, how)
-    line = run_cell("grid")
+    line = run_cell(which)
+    assert not line["correct"]
+    assert line["check"]["sim_values_differing"]["value"] > 0
+
+
+def test_a_corrupted_phase_table_is_not_correct(monkeypatch):
+    """One flit more for the first source of the first phase, in the
+    trace the program builds in the timed path."""
+    from repro_torch.trace import spec
+    arrays = spec.TraceSpec.arrays
+
+    def corrupted(self):
+        dst, flits = arrays(self)
+        flits = flits.copy()
+        flits[0, 0] += 1
+        return dst, flits
+    monkeypatch.setattr(spec.TraceSpec, "arrays", corrupted)
+    line = run_cell("replay")
     assert not line["correct"]
     assert line["check"]["sim_values_differing"]["value"] > 0
 
@@ -126,7 +165,8 @@ def test_a_traced_run_goes_quiet_then_spans_then_profiled(monkeypatch,
     name, family, mix = CELLS["grid"]
     line = harness.run(name, 4_000_000_009, 2.0, True,
                        t0=time.perf_counter(), device="cpu",
-                       backend="torch", config=small(family), mix=mix)
+                       backend="torch", config=small(family), mix=mix,
+                       clock=stepped_clock(monkeypatch))
     assert line["correct"], line["check"]
     err = capsys.readouterr().err
     for mode in ("quiet", "profiled", "spans"):

@@ -15,6 +15,7 @@ CFG = {m: generator.load_json("configs", m)
        for m in ("ring_mesh-1024", "flat_mesh-1024")}
 GRID = generator.load_json("traffic", "paper_grid")
 REPAIR = generator.load_json("traffic", "resilience")
+REPLAY = generator.load_json("traffic", "collectives")
 CHANNELS = {"channels": np.arange(3, 900, 3)}
 
 
@@ -128,9 +129,14 @@ def test_job_mfu_reads_the_quiet_requests_only():
                         (3, "spans"))]
     assert harness.reader("job_mfu")(rec) == pytest.approx(
         100 * 2 * roofline.job_bound_s(shape) / 0.6)
-    # The kernel's metrics read every launch of the window.
+    # The kernel's metrics read the quiet requests' launches too: the
+    # others run the kernel's clocked twin (the program's telemetry on).
+    for s in rec["launches"][2:]:
+        s["device_s"] = 0.06
     assert harness.reader("noc_step.us_per_cycle")(rec) == pytest.approx(
         1e6 * 0.05 / 1500)
+    assert harness.reader("noc_step_roofline")(rec) == pytest.approx(
+        100 * roofline.kernel_bound_s(shape) / 0.05)
 
 
 SHAPE = dict(lp1=7105, p=1024, np1=3585, fc=12, fi=12, batch=12,
@@ -145,7 +151,7 @@ def test_kernel_count_reads_shapes_only():
     assert one == (7105 * (12 + 14 + 4 * 12 + 12)
                    + 3585 * (4 * 12 + 2) + 7105 * 12)
     assert roofline.stream_bytes(SHAPE) == 12 * 1500 * 1024 * 3
-    launch = dict(SHAPE, device_s=0.05)
+    launch = dict(SHAPE, device_s=0.05, mode="quiet")
     share = harness.reader("noc_step_roofline")(dict(launches=[launch]))
     assert share == pytest.approx(
         100 * roofline.kernel_bound_s(SHAPE) / 0.05)
@@ -171,7 +177,8 @@ def test_kernel_count_matches_chip_smoke_at_one_pass_per_cycle():
 def test_generator_is_seeded_and_fresh(seed):
     for cfg, mix, ch in ((CFG["ring_mesh-1024"], GRID, None),
                          (CFG["flat_mesh-1024"], GRID, None),
-                         (CFG["ring_mesh-1024"], REPAIR, CHANNELS)):
+                         (CFG["ring_mesh-1024"], REPAIR, CHANNELS),
+                         (CFG["ring_mesh-1024"], REPLAY, None)):
         a = generator.Generator(cfg, mix, seed, ch)
         b = generator.Generator(cfg, mix, seed, ch)
         work = generator.entry(mix["entry"]).work
@@ -184,6 +191,15 @@ def test_generator_is_seeded_and_fresh(seed):
             seeds = [p["seed"] for r in reqs for p in r["points"]]
             assert len(reqs[0]["points"]) == 12
             assert work(reqs[0]) == 12 * 1024 * 1500
+        elif mix["entry"] == "trace_replay":
+            seeds = [r["point"]["seed"] for r in reqs]
+            assert [r["schedule"] for r in reqs] == [
+                "flat", "hier", "hier_int8"] * 2
+            assert work(reqs[0]) == 1024 * 4000
+            ups = a.warmups()
+            assert [r["schedule"] for r in ups] == ["flat", "hier",
+                                                    "hier_int8"]
+            assert not [r for r in ups if r in reqs]
         else:
             seeds = [r["point"]["seed"] for r in reqs]
             placed = [tuple(r["dead_links"]) for r in reqs]
@@ -205,7 +221,8 @@ def test_a_pattern_listed_twice_is_a_second_point_with_its_own_seed():
     assert len({p["seed"] for p in req["points"]}) == 96
 
 
-@pytest.mark.parametrize("mix", ["paper_grid", "resilience"])
+@pytest.mark.parametrize("mix", ["paper_grid", "resilience",
+                                 "collectives"])
 def test_each_mix_finds_its_entry_by_name(mix):
     ent = generator.entry(generator.load_json("traffic", mix)["entry"])
     for fn in ("context", "request", "run", "reference", "work", "points"):
@@ -251,7 +268,7 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 sys.path[:0] = [{root!r}, {src!r}]
 from noc_bench import harness, program, check, tracing, roofline
-from noc_bench.reference import noc, fabric
+from noc_bench.reference import noc, fabric, collectives
 program.modules()
 man = harness.manifest()
 for m in man["end_to_end"] + man["per_layer"]:

@@ -1,18 +1,25 @@
 """The program's telemetry in a traced run (``program_trace``): its eight
-readers on a synthetic record, the attribution of a profile's device
-operations and idle gaps to program spans on synthetic events, and whole
-CPU runs of the harness with the adapter hooked in."""
+readers and its helpers on a synthetic record, the attribution of a
+profile's device operations and idle gaps to program spans on synthetic
+events, and whole CPU runs of the harness, which turns it on in a traced
+run only."""
 import time
 
 import pytest
 import torch
 
 from noc_bench import harness, program_trace
-from noc_bench.test_noc_bench_faults import CELLS, small
+from noc_bench.test_noc_bench_faults import CELLS, small, stepped_clock
 
 CUDA = torch.autograd.DeviceType.CUDA
 CPU = torch.autograd.DeviceType.CPU
-NAMES = [m["name"] for m in program_trace.METRICS]
+# The per-layer metrics that read the program's telemetry.
+NAMES = ["streams.draw_ms_per_point", "streams.device_ops_per_point",
+         "noc_step.passes_per_cycle", "noc_step.barrier_wait_share",
+         "noc_step.host_prep_ms_per_launch", "geometry.ms_per_batch",
+         "experiment.report_ms_per_point", "faults.reroute_ms_per_scenario"]
+KEYS = ("program_spans", "program_counters", "program_kernels",
+        "program_profile")
 
 
 def span(i, name, parent, start, end, mode="spans", request=0):
@@ -73,6 +80,24 @@ def test_each_reader_on_a_synthetic_record():
     })
 
 
+def test_span_seconds_and_counted():
+    """Self seconds leave out the direct children; total seconds hold
+    them; only the ``spans`` requests count by default."""
+    rec = record()
+    own, total = program_trace.span_seconds(rec, "repair.measure_repair")
+    assert total == pytest.approx(16e-3)
+    assert own == pytest.approx(16e-3 - (3 + 2 + 0.5 + 0.25 + 0.4) * 1e-3)
+    assert program_trace.span_seconds(rec, "sim.draw_streams") == \
+        pytest.approx((2e-3, 2e-3))
+    assert program_trace.span_seconds(rec, "sim.draw_streams",
+                                      "profiled") == pytest.approx(
+        (9e-3, 9e-3))
+    assert program_trace.span_seconds(rec, "no.such_span") is None
+    assert program_trace.counted(rec, "streams.points") == 4
+    assert program_trace.counted(rec, "streams.points", "profiled") == 4
+    assert program_trace.counted(rec, "no.such_counter") == 0
+
+
 def test_each_reader_finds_nothing_in_a_record_without_telemetry():
     """A program without the telemetry (the parent's) leaves the keys
     out, or empty: every reader returns None."""
@@ -84,16 +109,21 @@ def test_each_reader_finds_nothing_in_a_record_without_telemetry():
 
 
 def test_the_metrics_are_a_manifests_entries():
+    """Each metric that reads the program's keys is a per-layer entry of
+    the manifest that lists its cells: every cell for all but the fault
+    scenarios' re-routing."""
     man = harness.manifest()
     cells = {w["name"] for w in man["workloads"]}
-    e2e = {m["name"] for m in man["end_to_end"]}
-    known = {m["name"] for m in man["end_to_end"] + man["per_layer"]}
-    for m in program_trace.METRICS:
-        assert set(m) == {"name", "unit", "better", "source", "layer",
-                          "moves", "workloads"}
-        assert m["moves"] in e2e and set(m["workloads"]) <= cells
-        assert m["name"] not in known
-        assert callable(harness.reader(m["name"]))
+    entries = {m["name"]: m for m in man["per_layer"]}
+    for name in NAMES:
+        m = entries[name]
+        assert m["source"] in ("program_span", "program_counter",
+                               "device_trace")
+        assert m["moves"] == "sim_rate"
+        want = ({"ring_mesh-1024.resilience"} if name.startswith("faults.")
+                else cells)
+        assert set(m["workloads"]) == want, name
+        assert callable(harness.reader(name))
 
 
 class Event:
@@ -147,18 +177,20 @@ def test_attribute_by_launch_call_and_innermost_span():
     assert program_trace.attribute(events, []) == {}
 
 
-def hooked_run(which, traced, seconds=2.0):
+def cpu_run(which, traced, seconds=2.0, **kw):
+    """``program_trace.run`` on the CPU: the line and the record."""
     name, family, mix = CELLS[which]
     return program_trace.run(name, 4_000_000_011, seconds, traced,
                              t0=time.perf_counter(), device="cpu",
                              backend="torch", config=small(family),
-                             mix=mix)
+                             mix=mix, **kw)
 
 
 def test_a_traced_cpu_run_reports_the_program_metrics(monkeypatch, capsys):
     monkeypatch.setattr(harness, "SLICE_S", 0.6)
-    line, adapter, _ = hooked_run("grid", True)
+    line, rec = cpu_run("grid", True, clock=stepped_clock(monkeypatch))
     assert line["correct"], line["check"]
+    assert set(KEYS) <= set(rec)
     got = line["metrics"]
     for name in ("streams.draw_ms_per_point", "noc_step.passes_per_cycle",
                  "geometry.ms_per_batch", "experiment.report_ms_per_point"):
@@ -172,18 +204,42 @@ def test_a_traced_cpu_run_reports_the_program_metrics(monkeypatch, capsys):
         assert name not in got, name
     assert got["streams.draw_ms_per_point"]["value"] <= \
         got["streams.ms_per_point"]["value"]
-    modes = {s["mode"] for s in adapter.spans}
+    modes = {s["mode"] for s in rec["program_spans"]}
     assert modes == {"spans", "profiled"}
-    assert {c["mode"] for c in adapter.counters} == modes
-    program_trace.report(adapter, {})
+    assert {c["mode"] for c in rec["program_counters"]} == modes
+    # The quiet requests ran with telemetry off: no record of theirs.
+    quiet = {r["index"] for r in rec["requests"] if r["mode"] == "quiet"}
+    assert quiet and not quiet & {s["request"]
+                                  for s in rec["program_spans"]}
+    program_trace.report(rec)
     assert "self ms a request" in capsys.readouterr().err
 
 
 def test_an_untraced_run_never_turns_telemetry_on(monkeypatch):
     from repro_torch import telemetry
-    calls = []
+    calls, made = [], []
     monkeypatch.setattr(telemetry, "enable", lambda: calls.append(1))
-    line, adapter, _ = hooked_run("grid", False, seconds=0.3)
-    assert line["correct"] and calls == []
-    assert adapter.spans == [] and adapter.counters == []
+    monkeypatch.setattr(program_trace, "Adapter",
+                        lambda: made.append(1))
+    line, rec = cpu_run("grid", False, seconds=0.3)
+    assert line["correct"] and calls == [] and made == []
+    assert not set(KEYS) & set(rec)
     assert not set(NAMES) & set(line["metrics"])
+
+
+def test_a_traced_replay_reports_its_layers(monkeypatch):
+    """The trace-replay cell's traced line holds each per-layer metric that
+    lists it and reads something on the CPU, and no fault scenario's."""
+    monkeypatch.setattr(harness, "SLICE_S", 0.6)
+    line, rec = cpu_run("replay", True, clock=stepped_clock(monkeypatch))
+    assert line["correct"], line["check"]
+    listed = {m["name"] for m in harness.metrics_of(
+        harness.manifest(), "ring_mesh-1024.collectives", True)}
+    on_cpu = {"streams.ms_per_point", "experiment.self_ms_per_point",
+              "streams.draw_ms_per_point", "noc_step.passes_per_cycle",
+              "geometry.ms_per_batch", "experiment.report_ms_per_point"}
+    assert on_cpu <= listed
+    assert not {n for n in listed if n.startswith(("faults.", "fabric."))}
+    assert set(line["metrics"]) == on_cpu
+    assert rec["program_kernels"] and all(
+        k["cycles"] == 150 for k in rec["program_kernels"])
