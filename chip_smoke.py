@@ -44,14 +44,20 @@ exits non-zero.
    ``tests/data/torch_port_trace_fault_reference.json`` and, for
    ``completion_cycles`` and ``delivered``, to the 18 ``trace_replay`` rows
    of ``BENCH_noc.json``; kernel == twin on the card at 64 and 256 PEs; the
-   stall-watchdog demo (16 PEs, strict and lenient barriers).
+   stall-watchdog demo (16 PEs, strict and lenient barriers).  Then the
+   record walk at the MoE cell's size (``phase_records``): two DeepSeek-V3
+   layers' dispatch and combine on the 1024-PE ring-mesh with the cell's
+   tokens a PE, flit scale and budget, one ``run_fused`` launch in records
+   form each (the trace-mode launch count read after a drain) against
+   ``run_plain`` on the same card tensors, every output equal, both phases
+   settled, every flit delivered; then timed.
 6. Runtime faults: the recipe of ``benchmarks/fault_sweep.py`` at 256 and
    1024 PEs (healthy, 2/4/8 dead links x fault seeds 0/1 unrepaired, the
    repaired twin) through ``run_experiments``, held to the same reference
    file with conservation checked per point; kernel == twin on the card at
    64 PEs, a transient fault with a late onset included.
 7. Times of the trace and fault modes, as in phase 4, on every launch of
-   phases 5 and 6 that runs them.
+   phases 5 and 6 that runs them, and the record walk's.
 8. ``flash_attention`` and ``ssd_scan`` against their plain versions on
    the card: the CPU tests' matrices in float32 and bfloat16, then the
    full-width shapes in bfloat16 (Zamba2 scoring, h2o-danube's window and
@@ -910,6 +916,105 @@ def phase_trace(ref) -> tuple[int, float, list]:
            f"credits; lenient {list(lenient.phase_done)} with "
            f"{lenient.dropped} drops; kernel == twin == reference")
     return launches, err, [r.experiment for r in reports]
+
+
+MOE_CELL = os.path.join(ROOT, "noc_bench", "configs",
+                        "deepseek_v3-ring_mesh-1024.json")
+MOE_MIX = os.path.join(ROOT, "noc_bench", "traffic", "moe_decode.json")
+MOE_ROUTER = ("hidden_size", "n_routed_experts", "num_experts_per_tok",
+              "n_group", "topk_group", "routed_scaling_factor",
+              "norm_topk_prob")
+# (MoE layer, router seed, token seed) of each exchange phase 5 checks.
+MOE_EXCHANGES = ((3, 2 ** 31 - 1, 17), (60, 2 ** 40 + 3, 2 ** 31 - 9))
+
+
+def phase_records(tokens_per_pe: int | None = None) -> dict:
+    """The trace mode's record walk at the MoE cell's size: a DeepSeek-V3
+    layer's dispatch and combine on the 1024-PE ring-mesh (its fabric,
+    tokens a PE, flit scale and cycle budget from the cell's files), each
+    exchange run through ``run_fused`` in records form and through
+    ``run_plain`` on the same card tensors, every output equal bit for
+    bit, both phases settled inside the budget, then the kernel timed.
+    Returns the summed timing row."""
+    from repro_torch import telemetry
+    from repro_torch.core import sim
+    from repro_torch.core.spec import TopologySpec
+    from repro_torch.kernels import noc_step
+    from repro_torch.trace import extract
+
+    with open(MOE_CELL) as f:
+        cell = json.load(f)
+    with open(MOE_MIX) as f:
+        mix = json.load(f)
+    fab, fl = cell["fabric"], mix["flits"]
+    tokens = tokens_per_pe or mix["tokens_per_pe"]
+    cycles = mix["budget"]["cycles"]
+    topo = TopologySpec(fab["family"], fab["n_pes"],
+                        queue_depth=fab["queue_depth"],
+                        src_queue_depth=fab["src_queue_depth"]).build()
+    geom = sim.build_geometry(topo, "cuda")
+    rows = []
+    for layer, router_seed, token_seed in MOE_EXCHANGES:
+        trace, summary = extract.moe_exchange_trace(
+            {k: cell[k] for k in MOE_ROUTER}, topo.n_pes, tokens,
+            dispatch_bytes=cell["token_bytes"]["dispatch"],
+            combine_bytes=cell["token_bytes"]["combine"],
+            router_seed=router_seed, token_seed=token_seed, device="cuda",
+            flit_bytes=fl["flit_bytes"], scale=fl["scale"])
+        cfg = sim.SimConfig(cycles=cycles, warmup=0, inj_rate=1.0,
+                            pattern=trace, seed=token_seed,
+                            starvation_limit=cell["starvation_limit"],
+                            device="cuda")
+        point = sim.make_point(cfg, topo.n_pes, topo)
+        inj, dst, tables, _, _ = sim.batch_operands(
+            [point], topo.n_pes, cycles, "cuda")
+        assert len(tables) == 6, "the exchange did not take records form"
+        kw = dict(warmup=0, starvation_limit=cfg.starvation_limit,
+                  arb_iters=sim.ARB_ITERS, trace=tables)
+        telemetry.drain()
+        got = noc_step.run_fused(geom, inj, dst, **kw)
+        launched = noc_step.launches()
+        assert launched == {noc_step.STATISTICAL: 0, noc_step.TRACE: 1,
+                            noc_step.FAULTS: 0}, launched
+        start, stop = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+        start.record()
+        want = noc_step.run_plain(geom, inj, dst, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        assert len(got) == len(want) == 5
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (layer, router_seed, token_seed)
+        done = got[4][0].tolist()
+        flits = (sum(summary["dispatch_flits"])
+                 + sum(summary["combine_flits"]))
+        delivered = int(got[1][0, noc_step.DELIVERED])
+        assert min(done) >= 0, f"a phase did not settle in {cycles}: {done}"
+        assert delivered == flits and int(got[0].sum()) == 0, (
+            delivered, flits)
+        start.record()
+        for _ in range(3):
+            noc_step.run_fused(geom, inj, dst, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / 3
+        b_ms, by = bound_ms(geom, 1, cycles, got[3], 2)
+        cluster, nbytes = noc_step.plan_for(geom, tables)
+        say(5, f"MoE layer {layer} at {tokens} tokens a PE: "
+               f"{trace.trace.n_records} records (at most "
+               f"{trace.trace.max_records_per_source()} a source a phase), "
+               f"largest expert {max(summary['expert_tokens'])} tokens, "
+               f"{flits} flits; phases done at {done} of {cycles} cycles "
+               f"| C={cluster}, {nbytes} B shared per CTA | kernel "
+               f"{ms:.3f} ms ({ms * 1e3 / cycles:.3f} us a cycle, "
+               f"{int(got[3][0]) / cycles:.2f} passes a cycle) | twin on "
+               f"the card {plain_ms:.1f} ms | bound {b_ms:.4f} ms ({by}, "
+               f"record tables left out) | one trace-mode launch, kernel "
+               f"== twin [{CARD}]")
+        rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "by": by, "err": 0.0})
+    return summed(rows)
 
 
 def fault_grid(ref, sizes, backend: str):
@@ -3151,6 +3256,7 @@ def main() -> int:
     with open(TRACE_FAULT_REFERENCE) as f:
         ref = json.load(f)
     launches[noc_step.TRACE], trace_err, trace_exps = phase_trace(ref)
+    records = phase_records()
     launches[noc_step.FAULTS], fault_err, fault_exps, fault_reports = (
         phase_faults(ref))
     timed = {}
@@ -3165,6 +3271,10 @@ def main() -> int:
                f"{timed[mode]['ms']:.3f} ms in all, twin "
                f"{timed[mode]['plain_ms']:.1f} ms, bound "
                f"{timed[mode]['bound_ms']:.4f} ms [{CARD}]")
+    say(7, f"record walk (the MoE cell): {len(MOE_EXCHANGES)} launches, "
+           f"kernel {records['ms']:.3f} ms in all, twin "
+           f"{records['plain_ms']:.1f} ms, bound {records['bound_ms']:.4f} "
+           f"ms [{CARD}]")
     timed[noc_step.STATISTICAL] = stat
     timed["streams"] = stream_stat
     timed.update(phase_kernels())

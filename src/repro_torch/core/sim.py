@@ -273,6 +273,15 @@ class SweepPoint:
     # shape; points batch together only with equal phase counts.
     ph_dst: np.ndarray
     ph_flits: np.ndarray
+    # Trace replay in records form (``trace.TraceRecords`` with a source
+    # that sends several records in a phase): each source's first record
+    # of each phase [n_phases, n_pes], and every record's destination and
+    # running end [R] int32.  ph_dst then holds each source's first
+    # record's destination and ph_flits its phase total.  Empty ([0, n_pes]
+    # and [0]) otherwise.
+    rec_start: np.ndarray
+    rec_dst: np.ndarray
+    rec_end: np.ndarray
     # Fault injection: lowered per-queue drop entries (queue id, drop
     # probability, onset cycle).  Healthy points carry the empty [0]
     # shape; faulted points are padded to a small bucket, so nearby fault
@@ -305,13 +314,20 @@ def make_point(cfg: SimConfig, n_pes: int,
                 f"[{n_pes}] with entries in [0, {n_pes})")
         perm = perm.astype(np.int32)
     loc_ring, loc_block = cfg.effective_locality()
+    recs = None
     if spec.is_trace:
         ph_dst, ph_flits = spec.trace_arrays(n_pes)
         ph_dst = np.asarray(ph_dst, np.int32)
         ph_flits = np.asarray(ph_flits, np.int32)
+        recs = spec.trace_records(n_pes)
+        if recs is not None:
+            telemetry.count("trace.records", recs[1].shape[0])
     else:
         ph_dst = np.zeros((0, n_pes), np.int32)
         ph_flits = np.zeros((0, n_pes), np.int32)
+    if recs is None:
+        recs = (np.zeros((0, n_pes), np.int32), np.zeros((0,), np.int32),
+                np.zeros((0,), np.int32))
     if cfg.faults:
         if topo is None:
             raise ValueError(
@@ -328,6 +344,7 @@ def make_point(cfg: SimConfig, n_pes: int,
                       loc_block=np.float32(loc_block),
                       seed=int(np.int32(cfg.seed)), use_perm=use_perm,
                       perm_dst=perm, ph_dst=ph_dst, ph_flits=ph_flits,
+                      rec_start=recs[0], rec_dst=recs[1], rec_end=recs[2],
                       fault_links=f_links, fault_drop_p=f_drop_p,
                       fault_onset=f_onset)
 
@@ -571,18 +588,46 @@ def batch_operands(points: list[SweepPoint], n_pes: int, cycles: int,
             [getattr(pt, field) for pt in points])).to(dtype).to(dev)
 
     # Trace replay: the phase tables ride the points as data; their
-    # [n_phases, P] shape is the batch's.
+    # [n_phases, P] shape is the batch's.  Where a point sends several
+    # records a phase from one source, the batch carries the record tables
+    # too (every point's, padded to the longest).
     trace = None
     if points[0].ph_dst.shape[0]:
         ph_flits = stacked("ph_flits", torch.int32)
         trace = (stacked("ph_dst", torch.int32), ph_flits,
                  ph_flits.sum(dim=2, dtype=torch.int32))
+        if any(pt.rec_dst.shape[0] for pt in points):
+            trace += record_tables(points, dev)
     faults = None
     if fault_u is not None:
         faults = (stacked("fault_links", torch.int32),
                   stacked("fault_drop_p", torch.float32),
                   stacked("fault_onset", torch.int32))
     return inj_s, dst_s, trace, faults, fault_u
+
+
+def record_tables(points: list[SweepPoint], device):
+    """The batch's record tables on ``device``: ``(start [B, n_phases, P],
+    dst [B, R], end [B, R])`` int32, R the most records of any point.  A
+    point in one-record form sends its phase tables' one record a source
+    (start = the source's id in each phase's row)."""
+    tabs = []
+    for pt in points:
+        if pt.rec_dst.shape[0]:
+            tabs.append((pt.rec_start, pt.rec_dst, pt.rec_end))
+        else:
+            n_ph, p = pt.ph_dst.shape
+            tabs.append((np.arange(n_ph * p, dtype=np.int32).reshape(n_ph, p),
+                         pt.ph_dst.reshape(-1), pt.ph_flits.reshape(-1)))
+    n_rec = max(t[1].shape[0] for t in tabs)
+
+    def padded(a):
+        return np.pad(a, (0, n_rec - a.shape[0]))
+    host = (np.stack([t[0] for t in tabs]),
+            np.stack([padded(t[1]) for t in tabs]),
+            np.stack([padded(t[2]) for t in tabs]))
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                 for a in host)
 
 
 @dataclasses.dataclass(frozen=True)

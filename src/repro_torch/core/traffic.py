@@ -148,6 +148,12 @@ class TrafficSpec:
         arrays for the phase-gated replay; only valid when ``is_trace``."""
         raise NotImplementedError(f"{self.kind!r} is not a trace spec")
 
+    def trace_records(self, n_pes: int):
+        """``(start [n_phases, P], dst [R], end [R])`` int32 record tables
+        where a source sends several records in a phase, else None (the
+        ``trace_arrays`` say the whole trace)."""
+        return None
+
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
         d = {"kind": self.kind}

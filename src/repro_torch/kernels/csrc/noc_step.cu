@@ -67,10 +67,12 @@
 // counters are summed per CTA (warp sums, shared atomics, two slots by
 // cycle) into per-CTA metric partials that rank 0 adds up at the end.
 //
-// Modes.  Trace replay, faults and the cluster are template flags of one
-// kernel (noc_step_kernel<TRACE, FAULTS, CL>, one host dispatch), so the
-// statistical instantiation carries none of the others' code and C == 1
-// none of the cluster's.  Faults: the [F] entries (queue, drop_p, onset)
+// Modes.  Trace replay, its records form, faults and the cluster are
+// template flags of one kernel (noc_step_kernel<TRACE, REC, FAULTS, CL>,
+// one host dispatch), so the statistical instantiation carries none of the
+// others' code, a one-record trace none of the record walk's (whose extra
+// live values made the trace mode spill more) and C == 1 none of the
+// cluster's.  Faults: the [F] entries (queue, drop_p, onset)
 // are copied into every CTA; each cycle stage 1 marks the entries active
 // this cycle (fault_u < drop_p in float32, cycle >= onset), and stage 3
 // drops a winner whose target queue an active entry names.  Trace: the
@@ -78,7 +80,13 @@
 // shared memory, the per-PE sent counts in the shared memory of the CTA
 // that owns the PE's inject row; the cycle ends in a cluster barrier, after
 // which rank 0 adds every rank's counts and runs the phase barrier update,
-// and the others read its cursor in the next cycle's stage 4.
+// and the others read its cursor in the next cycle's stage 4.  In records
+// form (REC, a source sending several records a phase) the phase tables
+// give each source's phase total, and the record tables (each source's
+// first record of a phase, every record's destination and running end)
+// stay in global memory; each PE's record cursor sits after the sent
+// counts, steps on when the PE's count reaches the record's end, and moves
+// to the PE's first record of the next phase when the count restarts.
 //
 // Counters.  Given a `clock_out` buffer, the host launches the mode's
 // twin with its counters on (noc_step_clocked: the same body with CLOCK
@@ -159,7 +167,7 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
 // sizes it (base == nullptr).  Returns the bytes.
 __host__ __device__ inline size_t carve(Smem* s, unsigned char* base, int R,
                                         int RC, int depth, int P, int F,
-                                        int n_phases) {
+                                        int n_phases, int records) {
   size_t at = 0;
   size_t o[32];
   int n = 0;
@@ -169,7 +177,8 @@ __host__ __device__ inline size_t carve(Smem* s, unsigned char* base, int R,
   o[n++] = take(at, 4ull * R);                         // src_of
   o[n++] = take(at, 4ull * R);                         // score_nc
   o[n++] = take(at, 12ull * RC);                       // best [3][RC]
-  o[n++] = take(at, 4ull * (n_phases > 0 ? P : 0));    // sent
+  // sent, and in records form each PE's record cursor after it
+  o[n++] = take(at, 4ull * (n_phases > 0 ? (records ? 2 : 1) * P : 0));
   o[n++] = take(at, 4ull * F);                         // f_links
   o[n++] = take(at, 4ull * F);                         // f_drop
   o[n++] = take(at, 4ull * F);                         // f_onset
@@ -247,6 +256,11 @@ struct Params {
   const int32_t* ph_flits;  // [B, n_phases, P]
   const int32_t* ph_total;  // [B, n_phases]
   int32_t* ph_done_out;     // [B, n_phases]
+  // Records form (REC): each source's first record of a phase, and each
+  // record's destination and running end.
+  const int32_t* rec_start;  // [B, n_phases, P]
+  const int32_t* rec_dst;    // [B, n_rec]
+  const int32_t* rec_end;    // [B, n_rec]
   // Fault injection (FAULTS): per-point entries and the uniform stream.
   const float* fault_u;     // [B, cycles, F]
   const int32_t* f_links;   // [B, F] queue ids (pad = L)
@@ -256,7 +270,7 @@ struct Params {
   // cycle loop's barriers and the cycles of the whole loop; null = off.
   long long* clock_out;     // [B, C, 2]
   int L1, P, NP1, depth, cycles, warmup, starv, arb_iters, diagnostics,
-      pow2, n_phases, strict_barrier, watchdog, F;
+      pow2, n_phases, strict_barrier, watchdog, F, n_rec;
   // Cluster: C CTAs per point, R rows and RC channels per CTA, and the
   // multipliers that divide a row or channel id by R or RC (__umulhi).
   int C, R, RC;
@@ -322,11 +336,11 @@ __device__ __forceinline__ int counted(long long* waited, Sync sync) {
 
 // The kernel's body; noc_step_kernel runs it with the counters off and
 // noc_step_clocked with them on.
-template <bool TRACE, bool FAULTS, bool CL, bool CLOCK>
+template <bool TRACE, bool REC, bool FAULTS, bool CL, bool CLOCK>
 __device__ __forceinline__ void noc_step_body(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem s;
-  carve(&s, smem, p.R, p.RC, p.depth, p.P, p.F, p.n_phases);
+  carve(&s, smem, p.R, p.RC, p.depth, p.P, p.F, p.n_phases, REC);
   const int me = CL ? (int)cg::this_cluster().block_rank() : 0;
   const Split<CL> rows{p.R, p.magic_r, me}, chans{p.RC, p.magic_c, me};
   const int b = blockIdx.x / p.C, tid = threadIdx.x, nt = blockDim.x;
@@ -338,6 +352,9 @@ __device__ __forceinline__ void noc_step_body(Params p) {
   const int NPH = p.n_phases;
   const int32_t* ph_dst = p.ph_dst + (size_t)b * NPH * P;
   const int32_t* ph_flits = p.ph_flits + (size_t)b * NPH * P;
+  const int32_t* rec_start = p.rec_start + (size_t)b * NPH * P;
+  const int32_t* rec_dst = p.rec_dst + (size_t)b * p.n_rec;
+  const int32_t* rec_end = p.rec_end + (size_t)b * p.n_rec;
   const float* fault_u = p.fault_u + (size_t)b * p.cycles * p.F;
   // wait is kept saturated at the starvation limit: only min(wait, starv)
   // is ever read, so the saturated counter gives the same scores.
@@ -383,6 +400,8 @@ __device__ __forceinline__ void noc_step_body(Params p) {
   }
   if constexpr (TRACE) {
     for (int i = tid; i < P; i += nt) s.sent[i] = 0;
+    if constexpr (REC)
+      for (int i = tid; i < P; i += nt) s.sent[P + i] = rec_start[i];
     for (int i = tid; i < NPH; i += nt) {
       s.ph_total[i] = p.ph_total[(size_t)b * NPH + i];
       s.ph_done[i] = -1;
@@ -647,8 +666,20 @@ __device__ __forceinline__ void noc_step_body(Params p) {
           const size_t at = (size_t)cur * P + pe;
           const int sent = restart ? 0 : s.sent[pe];
           want = want && phase_active && ph_flits[at] - sent > 0;
-          dst_pe = ph_dst[at];
-          acc = want && room;
+          if constexpr (REC) {
+            // The PE's current record, loaded beside ph_flits: a PE past
+            // its last record (clipped for the loads) is gated off above.
+            int k = restart ? rec_start[at] : s.sent[P + pe];
+            const int kc = k < p.n_rec ? k : p.n_rec - 1;
+            const int end = rec_end[kc];
+            dst_pe = rec_dst[kc];
+            acc = want && room;
+            if (acc && sent + 1 == end) ++k;
+            s.sent[P + pe] = k;
+          } else {
+            dst_pe = ph_dst[at];
+            acc = want && room;
+          }
           s.sent[pe] = sent + acc;
         } else {
           dst_pe = s.dst_v[lr];
@@ -778,14 +809,14 @@ __device__ __forceinline__ void noc_step_body(Params p) {
   cluster_sync<CL>();
 }
 
-template <bool TRACE, bool FAULTS, bool CL>
+template <bool TRACE, bool REC, bool FAULTS, bool CL>
 __global__ void __launch_bounds__(1024, 1) noc_step_kernel(Params p) {
-  noc_step_body<TRACE, FAULTS, CL, false>(p);
+  noc_step_body<TRACE, REC, FAULTS, CL, false>(p);
 }
 
-template <bool TRACE, bool FAULTS, bool CL>
+template <bool TRACE, bool REC, bool FAULTS, bool CL>
 __global__ void __launch_bounds__(1024, 1) noc_step_clocked(Params p) {
-  noc_step_body<TRACE, FAULTS, CL, true>(p);
+  noc_step_body<TRACE, REC, FAULTS, CL, true>(p);
 }
 
 // The cost of one barrier: `iters` cluster barriers (block barriers when
@@ -827,24 +858,28 @@ cudaError_t launch_clustered(Kernel kernel, int blocks, int C, int threads,
 }
 
 // The mode's kernel, its counters on when p->clock_out is set.
-template <bool TRACE, bool FAULTS, bool CL>
+template <bool TRACE, bool REC, bool FAULTS, bool CL>
 cudaError_t launch_mode(int batch, int C, size_t bytes, cudaStream_t s,
                         const Params* p) {
   if (p->clock_out != nullptr)
-    return launch_clustered(noc_step_clocked<TRACE, FAULTS, CL>, batch, C,
-                            1024, bytes, s, p);
-  return launch_clustered(noc_step_kernel<TRACE, FAULTS, CL>, batch, C, 1024,
-                          bytes, s, p);
+    return launch_clustered(noc_step_clocked<TRACE, REC, FAULTS, CL>, batch,
+                            C, 1024, bytes, s, p);
+  return launch_clustered(noc_step_kernel<TRACE, REC, FAULTS, CL>, batch, C,
+                          1024, bytes, s, p);
 }
 
 template <bool CL>
-cudaError_t dispatch(bool trace, bool faults, int batch, int C, size_t bytes,
-                     cudaStream_t s, const Params* p) {
+cudaError_t dispatch(bool trace, bool records, bool faults, int batch, int C,
+                     size_t bytes, cudaStream_t s, const Params* p) {
+  if (trace && records && faults)
+    return launch_mode<true, true, true, CL>(batch, C, bytes, s, p);
+  if (trace && records)
+    return launch_mode<true, true, false, CL>(batch, C, bytes, s, p);
   if (trace && faults)
-    return launch_mode<true, true, CL>(batch, C, bytes, s, p);
-  if (trace) return launch_mode<true, false, CL>(batch, C, bytes, s, p);
-  if (faults) return launch_mode<false, true, CL>(batch, C, bytes, s, p);
-  return launch_mode<false, false, CL>(batch, C, bytes, s, p);
+    return launch_mode<true, false, true, CL>(batch, C, bytes, s, p);
+  if (trace) return launch_mode<true, false, false, CL>(batch, C, bytes, s, p);
+  if (faults) return launch_mode<false, false, true, CL>(batch, C, bytes, s, p);
+  return launch_mode<false, false, false, CL>(batch, C, bytes, s, p);
 }
 
 unsigned magic(int divisor) {
@@ -862,15 +897,16 @@ const char* noc_step_error_string(int err) {
 
 // Bytes of one CTA's shared memory for R rows and RC channels.
 long long noc_step_shared_bytes(int R, int RC, int depth, int P, int F,
-                                int n_phases) {
-  return (long long)carve(nullptr, nullptr, R, RC, depth, P, F, n_phases);
+                                int n_phases, int records) {
+  return (long long)carve(nullptr, nullptr, R, RC, depth, P, F, n_phases,
+                          records);
 }
 
 // How many clusters of C CTAs with `bytes` of shared memory each the card
 // can hold at once (cudaOccupancyMaxActiveClusters on the statistical
 // kernel), or -1 with the error in *err.
 int noc_step_max_active_clusters(int C, long long bytes, int* err) {
-  auto kernel = noc_step_kernel<false, false, true>;
+  auto kernel = noc_step_kernel<false, false, false, true>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   int n = -1;
@@ -916,7 +952,8 @@ int noc_step_barrier_probe(int C, int threads, int iters, void* cycles_out,
 
 // Launches the kernel on `stream`: one cluster of C CTAs per point (grid =
 // batch * C), in the mode its operands ask for: trace replay when
-// n_phases > 0, fault injection when F > 0.  A non-null `clock_out`
+// n_phases > 0 (in records form when n_rec > 0), fault injection when
+// F > 0.  A non-null `clock_out`
 // ([batch, C, 2] int64) turns the barrier-wait counters on.  Returns
 // cudaGetLastError() as an int (0 = launched).
 int noc_step_launch(const void* inj, const void* dst, const void* route,
@@ -927,14 +964,16 @@ int noc_step_launch(const void* inj, const void* dst, const void* route,
                     void* m_kind_out,
                     void* passes_out, const void* ph_dst,
                     const void* ph_flits, const void* ph_total,
-                    void* ph_done_out, const void* fault_u,
+                    void* ph_done_out, const void* rec_start,
+                    const void* rec_dst, const void* rec_end,
+                    const void* fault_u,
                     const void* f_links, const void* f_drop,
                     const void* f_onset, void* clock_out, int batch,
                     int L1, int P, int NP1,
                     int depth, int cycles, int warmup, int starv,
                     int arb_iters, int diagnostics, int pow2, int n_phases,
-                    int strict_barrier, int watchdog, int F, int C,
-                    void* stream) {
+                    int strict_barrier, int watchdog, int F, int n_rec,
+                    int C, void* stream) {
   Params p;
   p.inj = static_cast<const uint8_t*>(inj);
   p.dst = static_cast<const int16_t*>(dst);
@@ -955,6 +994,9 @@ int noc_step_launch(const void* inj, const void* dst, const void* route,
   p.ph_flits = static_cast<const int32_t*>(ph_flits);
   p.ph_total = static_cast<const int32_t*>(ph_total);
   p.ph_done_out = static_cast<int32_t*>(ph_done_out);
+  p.rec_start = static_cast<const int32_t*>(rec_start);
+  p.rec_dst = static_cast<const int32_t*>(rec_dst);
+  p.rec_end = static_cast<const int32_t*>(rec_end);
   p.fault_u = static_cast<const float*>(fault_u);
   p.f_links = static_cast<const int32_t*>(f_links);
   p.f_drop = static_cast<const float*>(f_drop);
@@ -974,20 +1016,24 @@ int noc_step_launch(const void* inj, const void* dst, const void* route,
   p.strict_barrier = strict_barrier;
   p.watchdog = watchdog;
   p.F = F;
+  p.n_rec = n_rec;
+  const int records = n_phases > 0 && n_rec > 0;
   p.C = C;
   p.R = (L1 + C - 1) / C;
   p.RC = (NP1 + C - 1) / C;
   p.magic_r = magic(p.R);
   p.magic_c = magic(p.RC);
   const size_t bytes =
-      carve(nullptr, nullptr, p.R, p.RC, depth, P, F, n_phases);
+      carve(nullptr, nullptr, p.R, p.RC, depth, P, F, n_phases, records);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   (void)cudaGetLastError();  // clear any stale error before this launch
   cudaError_t err;
   if (C > 1)
-    err = dispatch<true>(n_phases > 0, F > 0, batch, C, bytes, s, &p);
+    err = dispatch<true>(n_phases > 0, records, F > 0, batch, C, bytes, s,
+                         &p);
   else
-    err = dispatch<false>(n_phases > 0, F > 0, batch, C, bytes, s, &p);
+    err = dispatch<false>(n_phases > 0, records, F > 0, batch, C, bytes, s,
+                          &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

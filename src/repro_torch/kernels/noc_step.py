@@ -9,9 +9,10 @@ loops it over cycles.  It is the oracle of the CUDA kernel.
 
 The step has the reference's three modes: statistical traffic, trace
 replay (``trace=``: phase-gated injection with a barrier between phases,
-``strict_barrier`` and the stall ``watchdog``) and runtime fault injection
-(``faults=`` with a per-cycle ``fault_u`` row: granted flits crossing a
-faulty wire are dropped).  Trace replay and faults combine.
+``strict_barrier`` and the stall ``watchdog``; in records form a source
+walks an ordered list of destinations within a phase) and runtime fault
+injection (``faults=`` with a per-cycle ``fault_u`` row: granted flits
+crossing a faulty wire are dropped).  Trace replay and faults combine.
 
 ``run_fused`` runs the whole cycle loop as one launch of the hand-written
 kernel ``csrc/noc_step.cu`` (the port of the reference's Pallas
@@ -107,13 +108,16 @@ def index_tables(geom, depth: int) -> IndexTables:
 
 
 def initial_state(batch: int, n_links: int, depth: int, device, *,
-                  n_pes: int = 0, n_phases: int = 0):
+                  n_pes: int = 0, n_phases: int = 0, rec_start=None):
     """Zeroed carry: (packed queue words [B, L+1, depth], queue lengths
     [B, L+1], aging counters [B, L+1], scalar metrics [B, 8], per-kind
     metrics [B, 3, 8]), all int32.  With ``n_phases > 0`` (trace replay)
     the carry extends to the 10-tuple: + (phase cursor [B], per-PE flits
     sent [B, P], retired-flit credit [B], per-phase completion cycles
-    [B, n_phases] initialized -1, stall-watchdog counter [B])."""
+    [B, n_phases] initialized -1, stall-watchdog counter [B]).  With the
+    record tables' ``rec_start`` [B, n_phases, P] (records form) it is the
+    11-tuple: + each PE's record cursor [B, P], at its first record of
+    phase 0."""
     z = dict(dtype=torch.int32, device=device)
     base = (torch.zeros((batch, n_links + 1, depth), **z),
             torch.zeros((batch, n_links + 1), **z),
@@ -122,11 +126,14 @@ def initial_state(batch: int, n_links: int, depth: int, device, *,
             torch.zeros((batch, N_KIND_ROWS, 8), **z))
     if n_phases <= 0:
         return base
-    return base + (torch.zeros((batch,), **z),
-                   torch.zeros((batch, n_pes), **z),
-                   torch.zeros((batch,), **z),
-                   torch.full((batch, n_phases), -1, **z),
-                   torch.zeros((batch,), **z))
+    base += (torch.zeros((batch,), **z),
+             torch.zeros((batch, n_pes), **z),
+             torch.zeros((batch,), **z),
+             torch.full((batch, n_phases), -1, **z),
+             torch.zeros((batch,), **z))
+    if rec_start is None:
+        return base
+    return base + (rec_start[:, 0].clone(),)
 
 
 def score_pow2(n_rows: int) -> int:
@@ -160,6 +167,14 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
     ends a phase that made no progress for that many cycles, recording
     ``-2 - cycle`` and the unretired credit in ``STALL_CREDIT``.
 
+    Records form: ``trace`` carries three more tables, ``(rec_start [B,
+    n_phases, P], rec_dst [B, R], rec_end [B, R])`` (``core.sim.
+    record_tables``), ``ph_flits`` holds each source's phase total, and
+    ``state`` is the 11-tuple.  Each PE's record cursor names its current
+    record: its destination is the cycle's, and the cursor steps on once
+    the PE has sent the record's running ``rec_end``; at a phase's end it
+    moves to the PE's first record of the next phase, as ``sent`` restarts.
+
     ``faults`` switches on fault injection: ``(links [B, F] int32 queue
     ids, drop_p [B, F] float32, onset [B, F] int32)`` with ``fault_u`` the
     [B, F] float32 uniform row of this cycle.  A flit granted a move into
@@ -172,8 +187,8 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
         q_pack, q_len, wait, m_scal, m_kind = state
     else:
         (q_pack, q_len, wait, m_scal, m_kind,
-         ph_idx, sent, credit, ph_done, stall) = state
-        ph_dst, ph_flits, ph_total = trace
+         ph_idx, sent, credit, ph_done, stall) = state[:10]
+        ph_dst, ph_flits, ph_total = trace[:3]
         n_phases = ph_dst.shape[1]
         batch_ids = torch.arange(ph_idx.shape[0], device=ph_idx.device)
         # The cursor is clipped for the gathers; `active` reads it unclipped.
@@ -183,7 +198,16 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
         # The Bernoulli row throttles bandwidth (inj_rate=1.0 -> inject as
         # fast as back-pressure allows); the phase gate does the rest.
         inj = inj & active[:, None] & (cur_flits - sent > 0)
-        dst = ph_dst[batch_ids, cur]
+        if len(trace) == 3:
+            dst = ph_dst[batch_ids, cur]
+        else:
+            rec_start, rec_dst, rec_end = trace[3:]
+            # A PE past its last record is gated off above; clip its cursor
+            # for the gathers.
+            rec = state[10]
+            rec_c = rec.clamp(0, rec_dst.shape[1] - 1).long()
+            dst = torch.gather(rec_dst, 1, rec_c)
+            rec_end_now = torch.gather(rec_end, 1, rec_c)
     lp1, p_pes = geom.route.shape
     n_links = lp1 - 1
     depth = q_pack.shape[2]
@@ -333,6 +357,8 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
     # cursor advances at the END of the cycle, so phase i+1 first injects
     # at cycle+1 — strictly after phase i's last delivery (ph_done[i]).
     sent = sent + acc.to(torch.int32)
+    if len(trace) > 3:
+        rec = rec + (acc & (sent == rec_end_now)).to(torch.int32)
     retired_c = delivered_c if strict_barrier else delivered_c + hard_drop_c
     credit = credit + retired_c.to(torch.int32)
     cur_total = ph_total[batch_ids, cur]
@@ -354,8 +380,14 @@ def cycle_step(geom, state, cycle: int, inj: torch.Tensor,
         m_scal[:, STALL_CREDIT] += (fire.to(torch.int32)
                                     * (cur_total - credit))
         ph_idx = torch.where(fire, n_phases, ph_idx)
-    return ((q_pack, q_len, wait, m_scal, m_kind,
-             ph_idx, sent, credit, ph_done, stall), passes)
+    state = (q_pack, q_len, wait, m_scal, m_kind,
+             ph_idx, sent, credit, ph_done, stall)
+    if len(trace) > 3:
+        # The next phase's first records, for the PEs whose phase closed.
+        nxt_ph = ph_idx.clamp(0, n_phases - 1).long()
+        state += (torch.where(done_now[:, None], rec_start[batch_ids, nxt_ph],
+                              rec),)
+    return state, passes
 
 
 def run_plain(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
@@ -365,15 +397,18 @@ def run_plain(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
               diagnostics: bool = False):
     """The plain twin of ``run_fused``: ``cycle_step`` looped over the
     cycles.  ``inj_s`` is [B, cycles, P] bool and ``dst_s`` [B, cycles, P]
-    int16; ``trace`` and ``faults`` are ``cycle_step``'s triples and
+    int16; ``trace`` (a triple, or six tables in records form) and
+    ``faults`` (a triple) are ``cycle_step``'s, and
     ``fault_u`` the [B, cycles, F] float32 stream.  Returns ``(q_len
     [B, L+1], m_scal [B, 8], m_kind [B, 3, 8], passes [B], ph_done
     [B, n_phases])`` int32; ``n_phases`` is 0 for statistical traffic."""
     batch, cycles, p_pes = inj_s.shape
     lp1 = geom.route.shape[0]
     n_phases = 0 if trace is None else trace[0].shape[1]
-    state = initial_state(batch, lp1 - 1, geom.depth, inj_s.device,
-                          n_pes=p_pes, n_phases=n_phases)
+    state = initial_state(
+        batch, lp1 - 1, geom.depth, inj_s.device, n_pes=p_pes,
+        n_phases=n_phases,
+        rec_start=trace[3] if trace is not None and len(trace) > 3 else None)
     idx = index_tables(geom, geom.depth)
     passes = torch.zeros(batch, dtype=torch.int32, device=inj_s.device)
     for c in range(cycles):
@@ -409,14 +444,15 @@ def _a16(n: int) -> int:
 
 
 def shared_bytes(rows: int, chans: int, depth: int, P: int, F: int,
-                 n_phases: int) -> int:
+                 n_phases: int, records: bool = False) -> int:
     """Bytes of one CTA's shared memory holding ``rows`` queue rows and
     ``chans`` output channels: the layout of ``carve`` in
     csrc/noc_step.cu, each array rounded up to 16 bytes.  int32: the
     packed queue words, the pre-move heads (two slots), the scores, each
     row's incoming sender, the target queue's score, the channel maxima
-    (three slots), trace mode's per-PE sent counts, the four fault-entry
-    columns, ph_total and ph_done, the control block.  16-bit: nxt, the
+    (three slots), trace mode's per-PE sent counts (and after them, in
+    records form, the record cursors), the four fault-entry columns,
+    ph_total and ph_done, the control block.  16-bit: nxt, the
     channel each head targets, wait, phys, prio, inj_pe, the list of
     active rows, the target queue's channel, the cycle's destination, the
     row's id in the geometry's order.  Bytes: q_len, cap, kind with
@@ -424,27 +460,28 @@ def shared_bytes(rows: int, chans: int, depth: int, P: int, F: int,
     queue's ring head, the cycle's injection, and the flags (active, win,
     feas; two slots)."""
     i32 = (rows * depth, 2 * rows, rows, rows, rows, 3 * chans,
-           P if n_phases > 0 else 0, F, F, F, F, n_phases, n_phases,
-           CTL_WORDS)
+           (2 if records else 1) * P if n_phases > 0 else 0, F, F, F, F,
+           n_phases, n_phases, CTL_WORDS)
     return (sum(_a16(4 * n) for n in i32) + 10 * _a16(2 * rows)
             + 6 * _a16(rows) + _a16(2 * rows))
 
 
 def cluster_plan(L1: int, NP1: int, depth: int, P: int, F: int,
-                 n_phases: int, *, cluster: int | None = None
-                 ) -> tuple[int, int]:
+                 n_phases: int, *, records: bool = False,
+                 cluster: int | None = None) -> tuple[int, int]:
     """``(C, shared_bytes)``: the smallest cluster of C <= 8 CTAs whose
     per-CTA slice (``ceil(L1 / C)`` queue rows, ``ceil(NP1 / C)`` output
-    channels, the ``F`` fault entries and ``n_phases`` trace phases) fits
-    ``SHARED_LIMIT_BYTES``, and that slice's bytes.  ``cluster`` asks for
-    one size (it must fit).  Raises ``ValueError`` when nothing fits."""
+    channels, the ``F`` fault entries, ``n_phases`` trace phases and, in
+    records form, the record cursors) fits ``SHARED_LIMIT_BYTES``, and
+    that slice's bytes.  ``cluster`` asks for one size (it must fit).
+    Raises ``ValueError`` when nothing fits."""
     sizes = range(1, MAX_CLUSTER + 1) if cluster is None else (cluster,)
     for c in sizes:
         if not 1 <= c <= MAX_CLUSTER:
             raise ValueError(f"cluster size must be 1..{MAX_CLUSTER}, "
                              f"got {c}")
         nbytes = shared_bytes(-(-L1 // c), -(-NP1 // c), depth, P, F,
-                              n_phases)
+                              n_phases, records)
         if nbytes <= SHARED_LIMIT_BYTES:
             return c, nbytes
     raise ValueError(
@@ -605,11 +642,11 @@ def layout(geom, cluster: int) -> Layout:
 
 def _configure(lib: ctypes.CDLL) -> None:
     lib.noc_step_launch.restype = ctypes.c_int
-    lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 24
-                                    + [ctypes.c_int] * 16
+    lib.noc_step_launch.argtypes = ([ctypes.c_void_p] * 27
+                                    + [ctypes.c_int] * 17
                                     + [ctypes.c_void_p])
     lib.noc_step_shared_bytes.restype = ctypes.c_longlong
-    lib.noc_step_shared_bytes.argtypes = [ctypes.c_int] * 6
+    lib.noc_step_shared_bytes.argtypes = [ctypes.c_int] * 7
     lib.noc_step_max_active_clusters.restype = ctypes.c_int
     lib.noc_step_max_active_clusters.argtypes = [
         ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
@@ -629,10 +666,10 @@ def load_library() -> ctypes.CDLL:
 
 
 def kernel_shared_bytes(rows: int, chans: int, depth: int, P: int, F: int,
-                        n_phases: int) -> int:
+                        n_phases: int, records: bool = False) -> int:
     """The kernel's own count of ``shared_bytes`` (its ``carve``)."""
-    return int(load_library().noc_step_shared_bytes(rows, chans, depth, P,
-                                                    F, n_phases))
+    return int(load_library().noc_step_shared_bytes(
+        rows, chans, depth, P, F, n_phases, 1 if records else 0))
 
 
 def max_active_clusters(cluster: int, nbytes: int) -> int:
@@ -741,13 +778,23 @@ def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor,
     batch, cycles = inj_s.shape[:2]
     if trace is not None:
         n_phases = trace[0].shape[1] if trace[0].dim() == 3 else 0
-        if n_phases < 1:
-            raise ValueError("trace tables must be [B, n_phases >= 1, P]")
+        if n_phases < 1 or len(trace) not in (3, 6):
+            raise ValueError("trace must be (ph_dst, ph_flits, ph_total) "
+                             "[B, n_phases >= 1, P] / [B, n_phases], and "
+                             "in records form (rec_start, rec_dst, rec_end)")
         for name, t in zip(("ph_dst", "ph_flits"), trace[:2]):
             _check_tensor(name, t, torch.int32, (batch, n_phases, p_pes),
                           dev)
         _check_tensor("ph_total", trace[2], torch.int32, (batch, n_phases),
                       dev)
+        if len(trace) == 6:
+            n_rec = trace[4].shape[1] if trace[4].dim() == 2 else 0
+            if n_rec < 1:
+                raise ValueError("record tables must be [B, R >= 1]")
+            _check_tensor("rec_start", trace[3], torch.int32,
+                          (batch, n_phases, p_pes), dev)
+            for name, t in zip(("rec_dst", "rec_end"), trace[4:]):
+                _check_tensor(name, t, torch.int32, (batch, n_rec), dev)
     if faults is not None:
         n_faults = faults[0].shape[1] if faults[0].dim() == 2 else 0
         if n_faults < 1 or fault_u is None:
@@ -767,7 +814,8 @@ def plan_for(geom, trace=None, faults=None,
     return cluster_plan(
         geom.route.shape[0], geom.cand.shape[0], geom.depth,
         geom.route.shape[1], 0 if faults is None else faults[0].shape[1],
-        0 if trace is None else trace[0].shape[1], cluster=cluster)
+        0 if trace is None else trace[0].shape[1],
+        records=trace is not None and len(trace) > 3, cluster=cluster)
 
 
 @telemetry.spanned("noc_step.run_fused")
@@ -830,7 +878,10 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
                 faults = (lay.row_at[faults[0].long()].to(torch.int32),
                           *faults[1:])
         ph_ptrs = (0, 0, 0) if trace is None else tuple(
-            t.data_ptr() for t in trace)
+            t.data_ptr() for t in trace[:3])
+        rec_ptrs = (0, 0, 0) if trace is None or len(trace) == 3 else tuple(
+            t.data_ptr() for t in trace[3:])
+        n_rec = 0 if rec_ptrs[0] == 0 else trace[4].shape[1]
         f_ptrs = (0, 0, 0, 0) if faults is None else (
             fault_u.data_ptr(), *(t.data_ptr() for t in faults))
         # The kernel's barrier-wait and cycle-loop clocks of each CTA, only
@@ -844,11 +895,12 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
         lay.phys.data_ptr(), lay.is_sink.data_ptr(),
         lay.inj_pe.data_ptr(), lay.contends.data_ptr(), lay.orig.data_ptr(),
         q_len.data_ptr(), m_scal.data_ptr(), m_kind.data_ptr(),
-        passes.data_ptr(), *ph_ptrs, ph_done.data_ptr(), *f_ptrs,
+        passes.data_ptr(), *ph_ptrs, ph_done.data_ptr(), *rec_ptrs, *f_ptrs,
         0 if clock is None else clock.data_ptr(), batch, lp1, p_pes, np1,
         geom.depth, cycles, warmup, starvation_limit, arb_iters,
         1 if diagnostics else 0, score_pow2(lp1), n_phases,
-        1 if strict_barrier else 0, watchdog, n_faults, cluster, stream)
+        1 if strict_barrier else 0, watchdog, n_faults, n_rec, cluster,
+        stream)
     LIBRARY.check(err)
     for mode in launch_modes(trace, faults):
         telemetry.count(LAUNCH_COUNTERS[mode])

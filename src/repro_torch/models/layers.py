@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
+from repro_torch.routing import group_limited_top_k, top_k  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # Parameter metadata
@@ -559,14 +560,6 @@ def moe_meta(cfg: ModelConfig) -> dict:
                        mlp_meta(cfg, d_ff=e.d_ff_expert).items()
                        if k != "ln"}
     return p
-
-
-def top_k(gates, k: int):
-    """The k largest gates per row and their expert ids, ties broken
-    towards the lower id as ``jax.lax.top_k`` breaks them (a stable
-    descending sort; ``torch.topk`` promises no order among equals)."""
-    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def moe_block(cfg: ModelConfig, p, x):

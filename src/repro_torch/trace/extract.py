@@ -1,6 +1,7 @@
 """Trace extraction: collective schedules / dist layer / HLO -> TraceSpec.
 
-Three front ends produce the same ``TraceSpec`` phase representation:
+Three front ends produce the same ``TraceSpec`` phase representation, and
+a fourth, ``moe_exchange_trace`` (``trace.moe``), a ``TraceRecords``:
 
 * ``schedule_to_trace`` — a collective *schedule census* (the format of
   ``experiments/hillclimb/collective_schedules.json`` and of
@@ -13,7 +14,14 @@ Three front ends produce the same ``TraceSpec`` phase representation:
 * ``hlo_to_trace`` — a post-SPMD HLO dump via ``launch.hlo``'s per-op
   census, covering ``collective-permute`` (ring decode attention's
   ``ppermute`` steps, with explicit ``source_target_pairs`` destination
-  maps) and ``all-to-all`` alongside the reduction collectives.
+  maps) and ``all-to-all`` alongside the reduction collectives;
+* ``moe_exchange_trace`` — one MoE layer's decode-step routing on the
+  device (DeepSeek-V3's group-limited router), its expert-parallel
+  dispatch and combine as two phases in which a source sends to many
+  experts.
+
+``schedule_to_trace`` and the layout of ``moe_exchange_trace`` are the
+``trace.build`` span while telemetry is on.
 
 Decomposition: each collective over a group of ``g`` PEs becomes its
 textbook step sequence — ``ring`` (g-1 neighbour-shift steps per
@@ -38,6 +46,7 @@ import math
 import os
 from typing import Optional, Sequence
 
+from repro_torch import telemetry
 from repro_torch.trace.spec import (FLIT_BYTES, Trace, TraceSpec,
                                     flits_for_bytes)
 
@@ -194,6 +203,7 @@ def _to_spec(byte_phases: list[list], n_pes: int, *, flit_bytes: int,
                      scale=scale, label=label)
 
 
+@telemetry.spanned("trace.build")
 def schedule_to_trace(schedule: dict, n_pes: int, *,
                       flit_bytes: int = FLIT_BYTES, scale: float = 1.0,
                       normalize_flits: Optional[int] = None,
@@ -407,3 +417,9 @@ def completion_budget(trace: TraceSpec, topology_diameter: int = 64,
     per_phase = sum(max(f for _, _, f in ph) + topology_diameter + 8
                     for ph in trace.phases)
     return int(math.ceil(per_phase * slack)) + 64
+
+
+# ---------------------------------------------------------------------------
+# Front end 4: a mixture-of-experts layer's expert-parallel exchange.
+# ---------------------------------------------------------------------------
+from repro_torch.trace.moe import moe_exchange_trace  # noqa: E402

@@ -11,6 +11,14 @@ implemented as a phase-gated injection mask inside the cycle step
 traces bit-identically and whole trace x topology grids batch in
 ``core.sweep``.
 
+Records form: in a ``TraceSpec`` phase each source sends to one
+destination.  ``TraceRecords`` holds phases in which a source sends an
+ordered list of ``(dst, flits)`` records (an expert-parallel all-to-all:
+one source, many experts), as arrays, since such a phase may hold a
+hundred thousand records.  The replay walks each source's list with a
+cursor beside its sent count, so a source's records leave back to back,
+with no barrier between them.
+
 Dependency model: ``deps[i]`` lists the phases phase ``i`` waits on (every
 edge must point backwards, i.e. the stored order is a topological order).
 The default is the chain ``deps[i] = (i-1,)``.  The replay executes phases
@@ -69,8 +77,8 @@ class TraceSpec:
     ``phases`` is a tuple of phases; each phase is a tuple of
     ``(src, dst, flits)`` int records.  Within a phase each source sends
     to at most one destination (the builders in ``repro_torch.trace.extract``
-    split richer patterns into sub-phases); sources absent from a phase
-    are idle.  ``deps`` are the dependency edges (see module docstring);
+    split richer patterns into sub-phases; ``TraceRecords`` holds phases
+    whose sources send to several); sources absent from a phase are idle.  ``deps`` are the dependency edges (see module docstring);
     ``()`` means the default chain.  ``flit_bytes`` documents the byte
     size of one flit for this trace; ``scale`` records the byte-volume
     divisor applied when the trace was extracted (1.0 = unscaled).
@@ -114,7 +122,7 @@ class TraceSpec:
                     raise ValueError(
                         f"phase {i}: source {s} appears twice (one "
                         f"destination per source per phase; split into "
-                        f"sub-phases)")
+                        f"sub-phases, or use TraceRecords)")
                 seen.add(s)
         object.__setattr__(self, "phases", phases)
         deps = tuple(tuple(int(p) for p in dp) for dp in self.deps)
@@ -189,10 +197,133 @@ class TraceSpec:
         return cls.from_dict(json.loads(s))
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TraceRecords:
+    """A multi-phase trace in records form: a source may send to several
+    destinations in one phase, as an ordered list of ``(dst, flits)``
+    records, and the whole table is held as arrays.
+
+    ``phase``, ``src``, ``dst`` and ``flits`` are equal-length int32
+    arrays, one entry a record.  A source injects its records of a phase
+    in their stored order, each record's flits straight after the last
+    flit of the one before; the phases run in order behind a full barrier,
+    as ``TraceSpec``'s do.  The constructor validates the table and sorts
+    it stably by (phase, source), so each source's records stay in their
+    stored order.  ``TraceSpec`` keeps its one-destination rule; this is
+    the only form that lifts it.  Equality and hashing are by identity
+    (the arrays have neither)."""
+
+    n_pes: int
+    n_phases: int
+    phase: np.ndarray
+    src: np.ndarray
+    dst: np.ndarray
+    flits: np.ndarray
+    flit_bytes: int = FLIT_BYTES
+    scale: float = 1.0
+    label: str = ""
+
+    def __post_init__(self):
+        if self.n_pes < 2:
+            raise ValueError(f"a trace needs >= 2 PEs, got {self.n_pes}")
+        if self.n_phases < 1:
+            raise ValueError("a trace needs at least one phase")
+        if self.flit_bytes <= 0 or self.scale <= 0:
+            raise ValueError("flit_bytes and scale must be > 0")
+        cols = [np.asarray(a) for a in (self.phase, self.src, self.dst,
+                                        self.flits)]
+        n = cols[0].shape
+        if any(c.ndim != 1 or c.shape != n
+               or not np.issubdtype(c.dtype, np.integer) for c in cols):
+            raise ValueError("phase, src, dst and flits must be 1-D integer "
+                             "arrays of one length")
+        ph, s, d, f = (c.astype(np.int64) for c in cols)
+        bad = ((ph < 0) | (ph >= self.n_phases) | (s < 0) | (s >= self.n_pes)
+               | (d < 0) | (d >= self.n_pes))
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(f"record {i} (phase {ph[i]}, {s[i]} -> {d[i]}) "
+                             f"out of range for {self.n_phases} phases and "
+                             f"{self.n_pes} PEs")
+        for what, mask in (("targets itself", s == d),
+                           ("needs flits > 0", f <= 0)):
+            if mask.any():
+                i = int(np.argmax(mask))
+                raise ValueError(f"record {i} (phase {ph[i]}, {s[i]} -> "
+                                 f"{d[i]}) {what}")
+        if f.sum(dtype=np.int64) >= 1 << 31:
+            raise ValueError("a trace holds fewer than 2**31 flits")
+        empty = np.bincount(ph, minlength=self.n_phases) == 0
+        if empty.any():
+            raise ValueError(f"phase {int(np.argmax(empty))} is empty")
+        order = np.argsort(ph * self.n_pes + s, kind="stable")
+        for name, c in zip(("phase", "src", "dst", "flits"), (ph, s, d, f)):
+            object.__setattr__(self, name, c[order].astype(np.int32))
+
+    # -- derived ------------------------------------------------------------
+    @property
+    def n_records(self) -> int:
+        return int(self.src.shape[0])
+
+    def _key(self) -> np.ndarray:
+        return self.phase.astype(np.int64) * self.n_pes + self.src
+
+    def source_totals(self) -> np.ndarray:
+        """Flits each source sends in each phase, [n_phases, n_pes] int32."""
+        tot = np.bincount(self._key(), weights=self.flits,
+                          minlength=self.n_phases * self.n_pes)
+        return tot.astype(np.int32).reshape(self.n_phases, self.n_pes)
+
+    def max_records_per_source(self) -> int:
+        return int(np.bincount(self._key()).max())
+
+    def arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(dst, flits)`` [n_phases, n_pes] int32: each source's first
+        record's destination, and the flits it sends in the phase (0 for an
+        idle source)."""
+        key = self._key()
+        first = np.ones(self.n_records, bool)
+        first[1:] = key[1:] != key[:-1]
+        dst = np.zeros(self.n_phases * self.n_pes, np.int32)
+        dst[key[first]] = self.dst[first]
+        return dst.reshape(self.n_phases, self.n_pes), self.source_totals()
+
+    def records(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(start [n_phases, n_pes], dst [R], end [R])`` int32: the index
+        of each source's first record of each phase in the (phase,
+        source)-sorted table, each record's destination, and the source's
+        flits sent once the record is done (a running sum that restarts at
+        each source's first record of a phase)."""
+        key = self._key()
+        start = np.searchsorted(key, np.arange(self.n_phases * self.n_pes))
+        run = np.cumsum(self.flits, dtype=np.int64)
+        before = np.concatenate([[0], run])[start]   # flits ahead of a key
+        end = run - before[key]
+        return (start.astype(np.int32).reshape(self.n_phases, self.n_pes),
+                self.dst.copy(), end.astype(np.int32))
+
+    # -- serialization ------------------------------------------------------
+    def to_dict(self) -> dict:
+        return {"n_pes": self.n_pes, "n_phases": self.n_phases,
+                "records": {k: getattr(self, k).tolist()
+                            for k in ("phase", "src", "dst", "flits")},
+                "flit_bytes": self.flit_bytes, "scale": self.scale,
+                "label": self.label}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TraceRecords":
+        return cls(n_pes=d["n_pes"], n_phases=d["n_phases"],
+                   **{k: np.asarray(v, np.int32)
+                      for k, v in d["records"].items()},
+                   flit_bytes=d.get("flit_bytes", FLIT_BYTES),
+                   scale=d.get("scale", 1.0), label=d.get("label", ""))
+
+
 @traffic.register
 @dataclasses.dataclass(frozen=True)
 class Trace(traffic.TrafficSpec):
-    """Registry entry adapting a ``TraceSpec`` to the traffic protocol.
+    """Registry entry adapting a ``TraceSpec`` or a ``TraceRecords`` to
+    the traffic protocol.
 
     ``SimConfig(pattern=Trace(trace=spec))`` switches the simulator into
     phase-gated replay: packets come from the trace's phases instead of
@@ -203,7 +334,7 @@ class Trace(traffic.TrafficSpec):
     ``SimConfig`` enforces both with clear errors.
     """
 
-    trace: TraceSpec = None  # type: ignore[assignment]
+    trace: TraceSpec | TraceRecords = None  # type: ignore[assignment]
 
     kind: ClassVar[str] = "trace"
     self_free: ClassVar[bool] = True
@@ -212,9 +343,11 @@ class Trace(traffic.TrafficSpec):
     def __post_init__(self):
         super().__post_init__()
         if isinstance(self.trace, dict):
-            object.__setattr__(self, "trace", TraceSpec.from_dict(self.trace))
-        if not isinstance(self.trace, TraceSpec):
-            raise TypeError("Trace needs a TraceSpec (trace=...)")
+            cls = TraceRecords if "records" in self.trace else TraceSpec
+            object.__setattr__(self, "trace", cls.from_dict(self.trace))
+        if not isinstance(self.trace, (TraceSpec, TraceRecords)):
+            raise TypeError("Trace needs a TraceSpec or TraceRecords "
+                            "(trace=...)")
         if self.locality_ringlet or self.locality_block:
             raise ValueError(
                 "locality mixing does not apply to trace replay; the trace "
@@ -233,6 +366,16 @@ class Trace(traffic.TrafficSpec):
     def trace_arrays(self, n_pes: int) -> tuple[np.ndarray, np.ndarray]:
         self._check_size(n_pes)
         return self.trace.arrays()
+
+    def trace_records(self, n_pes: int):
+        """``TraceRecords.records()`` where a source sends more than one
+        record in a phase; None where each sends at most one, which
+        ``trace_arrays`` says whole."""
+        self._check_size(n_pes)
+        if (isinstance(self.trace, TraceSpec)
+                or self.trace.max_records_per_source() <= 1):
+            return None
+        return self.trace.records()
 
     def _check_size(self, n_pes: int) -> None:
         if n_pes != self.trace.n_pes:

@@ -20,7 +20,8 @@ chunks and widths that do not tile by 16 (through ``ops.ssd`` too), in
 the fast- and slow-decay regimes, at d_state 128 and at every split of
 P the planner allows; and every ``noc_step`` mode split over clusters of
 more than one CTA, which the main path picks only at 1024 PEs, against
-the twin; and the decoder-only model zoo at smoke size (dense, sliding
+the twin, the trace mode's record walk (a MoE layer's exchange) at 64 and
+1024 PEs, and the mined collective traces through it; and the decoder-only model zoo at smoke size (dense, sliding
 window, MoE, SSM) through its kernels against the plain route, with each
 forward's launches counted.  This file imports no jax, so on the card it
 runs without the suite's conftest::
@@ -80,6 +81,16 @@ def test_cluster_plan_matches_a_hand_computed_layout():
     assert t_noc.shared_bytes(2369, 1611, 8, 1024, 0, 0) == (
         2369 * 32 + 18_960 + 3 * 9488 + 19_344 + 352 + 10 * 4752
         + 6 * 2384 + 4752) == 209_504
+
+
+def test_cluster_plan_counts_the_record_cursors():
+    """Records form adds one int32 cursor a PE beside the sent counts; the
+    paper's 1024-PE ring-mesh keeps its three CTAs in both forms."""
+    assert t_noc.cluster_plan(1761, 1201, 8, 256, 0, 2, records=True) == (
+        1, 155_936 + 256 * 4 + 256 * 4 + 2 * 16)
+    assert t_noc.cluster_plan(7105, 4833, 8, 1024, 0, 20) == (3, 213_760)
+    assert t_noc.cluster_plan(7105, 4833, 8, 1024, 0, 2,
+                              records=True) == (3, 213_632 + 4096)
 
 
 @pytest.mark.parametrize("family", ["ring_mesh", "flat_mesh"])
@@ -466,6 +477,78 @@ def test_noc_step_counters(card, cluster):
     finally:
         telemetry.disable()
     assert passes["cuda"] == passes["torch"] and passes["cuda"][0][0] >= 300
+
+
+def _exchange(card, n_pes, tokens_per_pe, cycles):
+    """A MoE layer's exchange (records form: up to ~60 records a source a
+    phase) on the ring-mesh of ``n_pes``, one expert a PE."""
+    from repro_torch.trace import moe
+    experts = 256 if n_pes == 1024 else n_pes
+    model = dict(hidden_size=7168 if n_pes == 1024 else 256,
+                 n_routed_experts=experts, num_experts_per_tok=8, n_group=8,
+                 topk_group=4, routed_scaling_factor=2.5, norm_topk_prob=True)
+    trace, _ = moe.moe_exchange_trace(
+        model, n_pes, tokens_per_pe, dispatch_bytes=7392,
+        combine_bytes=14336, router_seed=3, token_seed=9, device=card,
+        scale=231.0)
+    topo, geom = _geometry("ring_mesh", n_pes, device=card)
+    cfgs = [sim.SimConfig(cycles=cycles, warmup=0, inj_rate=1.0,
+                          pattern=trace, seed=4, device="cuda")]
+    return topo, geom, _operands(topo, geom, cfgs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 3])
+def test_record_walk_on_clusters_matches_twin(card, cluster):
+    _, geom, (inj, dst, opts) = _exchange(card, 64, 2, 900)
+    assert len(opts["trace"]) == 6
+    got = t_noc.run_fused(geom, inj, dst, cluster_size=cluster, **opts)
+    want = t_noc.run_plain(geom, inj, dst, **opts)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert (got[4] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_record_walk_matches_twin_at_1024(card):
+    """The paper's 1024-PE ring-mesh (C = 3): a MoE layer's dispatch and
+    combine through the kernel's record walk equal the twin bit for bit,
+    both phases settled."""
+    _, geom, (inj, dst, opts) = _exchange(card, 1024, 2, 3000)
+    assert t_noc.plan_for(geom, opts["trace"])[0] == 3
+    got = t_noc.run_fused(geom, inj, dst, **opts)
+    want = t_noc.run_plain(geom, inj, dst, **opts)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert (got[4] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_collective_traces_through_the_record_walk(card):
+    """The three mined schedules at 1024 PEs, one record a source: the
+    kernel's record walk gives the one-record path's outputs, and the
+    one-record path keeps its plan."""
+    import os
+
+    from repro_torch import trace as tr
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    topo, geom = _geometry("ring_mesh", 1024, device=card)
+    traces = tr.traces_for_schedules(
+        1024, os.path.join(root, tr.SCHEDULES_JSON), pod_size=16,
+        normalize_flits=8)
+    for name, t in traces.items():
+        cfg = sim.SimConfig(cycles=4000, warmup=0, inj_rate=1.0, pattern=t,
+                            seed=1, device="cuda")
+        inj, dst, opts = _operands(topo, geom, [cfg])
+        assert t_noc.plan_for(geom, opts["trace"]) == t_noc.cluster_plan(
+            7105, 4833, 8, 1024, 0, t.trace.n_phases)
+        recs = sim.record_tables([sim.make_point(cfg, 1024, topo)], card)
+        want = t_noc.run_fused(geom, inj, dst, **opts)
+        got = t_noc.run_fused(geom, inj, dst,
+                              **dict(opts, trace=opts["trace"] + recs))
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), name
+        assert (want[4] >= 0).all(), name
 
 
 # The CPU tests' SSD matrix (tests/test_torch_attention_ssd.py, after the
