@@ -65,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -210,6 +211,14 @@ def _device(device="cuda") -> torch.device:
 
 
 def _on(a, dev: torch.device, dtype=None) -> torch.Tensor:
+    if isinstance(a, np.ndarray) and not a.flags.writeable:
+        # A route table on a device is read-only (core.sim.build_geometry).
+        # The walks only read their tables, so torch's warning that writes
+        # to such a tensor are undefined does not apply.
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", "The given NumPy array is not writable")
+            return torch.as_tensor(a, device=dev, dtype=dtype)
     return torch.as_tensor(a, device=dev, dtype=dtype)
 
 

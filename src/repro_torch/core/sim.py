@@ -361,7 +361,7 @@ class Geometry:
     node, so they are supersets of any route table's live edges and stay
     valid across morphs.  Runtime masks select the live subset.
     """
-    route: torch.Tensor      # [L+1, P] int16 (re-read per call: morph-aware)
+    route: torch.Tensor      # [L+1, P] int16 (one upload per route array)
     kind: torch.Tensor       # [L+1] int32
     prio: torch.Tensor       # [L+1] int32
     cap: torch.Tensor        # [L+1] int32
@@ -412,7 +412,8 @@ def geometry_from_arrays(arrays: dict, *, depth: int, cap_total: int,
 
 
 def _structural_cache(topo: topo_mod.Topology) -> dict:
-    """Route-independent host arrays, cached on the topology object."""
+    """Route-independent host arrays, cached on the topology object, with
+    ``build_geometry``'s device copies (``on_device``, ``route_on_device``)."""
     cache = topo.__dict__.get("_torch_geometry_cache")
     if cache is not None:
         return cache
@@ -467,27 +468,46 @@ def _structural_cache(topo: topo_mod.Topology) -> dict:
         inj_pe=inj_pe, cand=cand, intab=intab,
         depth=int(topo.link_cap[finite].max()),
         cap_total=int(topo.link_cap[finite].sum()),
-        on_device={},
+        on_device={}, route_on_device={},
     )
     topo.__dict__["_torch_geometry_cache"] = cache
     return cache
 
 
+# The telemetry counters of ``build_geometry``'s device route: one a call.
+ROUTE_UPLOADED, ROUTE_REUSED = ("geometry.route[uploaded]",
+                                "geometry.route[reused]")
+
+
 @telemetry.spanned("sim.build_geometry")
 def build_geometry(topo: topo_mod.Topology, device="cuda") -> Geometry:
     """Device-ready geometry on ``device``.  The structural tables are
-    uploaded once per (topology, device); the route table is re-read every
-    call so in-place morphs (``core.morph``) take effect immediately."""
+    uploaded once per (topology, device), the route table once per
+    (topology, route-table array, device): while ``topo.route_table`` is
+    the array last uploaded to ``device``, the call reuses its device copy.
+    Reassigning the attribute (a morph, a reset, a repair) takes effect at
+    the next call; an uploaded array is made read-only, so an in-place
+    write after a run raises instead of leaving the device copy stale."""
     c = _structural_cache(topo)
     dev = torch.device(device)
     static = c["on_device"].get(str(dev))
     if static is None:
         static = c["on_device"][str(dev)] = _upload(
             {k: c[k] for k in GEOMETRY_ARRAYS if k != "route"}, dev)
-    route = np.concatenate(
-        [topo.route_table.astype(np.int16),
-         np.full((1, topo.n_pes), -1, np.int16)], axis=0)
-    return Geometry(route=torch.from_numpy(route).to(dev), **static,
+    host = topo.route_table
+    # The entry holds the host array it came from, so its id is not reused.
+    held, route = c["route_on_device"].get(str(dev), (None, None))
+    if held is host:
+        telemetry.count(ROUTE_REUSED)
+    else:
+        host.flags.writeable = False
+        padded = np.concatenate(
+            [host.astype(np.int16), np.full((1, topo.n_pes), -1, np.int16)],
+            axis=0)
+        route = torch.from_numpy(padded).to(dev)
+        c["route_on_device"][str(dev)] = (host, route)
+        telemetry.count(ROUTE_UPLOADED)
+    return Geometry(route=route, **static,
                     n_links=topo.n_links, n_phys=topo.n_phys,
                     n_pes=topo.n_pes, depth=c["depth"],
                     cap_total=c["cap_total"])

@@ -95,7 +95,10 @@ class Topology:
     link_dst_node: np.ndarray  # int32 node id (-1 for EJECT sinks)
     link_prio: np.ndarray      # int32 arbitration priority
     link_cap: np.ndarray       # int32 queue capacity
-    route_table: np.ndarray    # int32 [n_links, n_pes] -> next queue id
+    # int32 [n_links, n_pes] -> next queue id.  Reassign it to change the
+    # routes: core.sim.build_geometry makes the array read-only once it is
+    # on a device, so an in-place write after a run raises.
+    route_table: np.ndarray
     pe_src_link: np.ndarray    # int32 [n_pes]
     pe_eject_link: np.ndarray  # int32 [n_pes]
     n_routers: int = 0

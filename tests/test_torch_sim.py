@@ -14,16 +14,21 @@ import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from repro.core import sim as r_sim
 from repro.core import spec as r_spec
 from repro.faults import spec as r_faults
+from repro_torch import telemetry
 from repro_torch.configs.ringmesh_noc import CONFIG
 from repro_torch.core import experiment as t_exp
+from repro_torch.core import morph as t_morph
+from repro_torch.core import packet as t_pk
 from repro_torch.core import sim as t_sim
 from repro_torch.core import spec as t_spec
+from repro_torch.core import topology as t_topo
 from repro_torch.faults import spec as t_faults
 
 torch.set_num_threads(1)
@@ -144,3 +149,74 @@ def test_config_validation():
         t_sim.SimConfig(backend="torch", device="cpu", watchdog=5)
     with pytest.raises(ValueError, match="warmup"):
         t_sim.SimConfig(cycles=10, warmup=10)
+
+
+def _morph_walk(topo, repeats=1):
+    """The reference's ``test_geometry_morph_aware`` walk on the port: each
+    state simulated ``repeats`` times — as built, with ringlet 0 of block 0
+    switched off, and reset.  Returns the results and the route array of
+    each state."""
+    cfg = t_sim.SimConfig(backend="torch", device="cpu", cycles=CYCLES,
+                          warmup=WARMUP, inj_rate=0.2, seed=0)
+    ctl = t_morph.MorphController(topo)
+    runs, arrays = [], []
+    for step in ("built", "morphed", "reset"):
+        if step == "morphed":
+            ctl.apply(t_pk.MorphPacket(hl=1, ers=0,
+                                       link_states=MORPH["link_states"]),
+                      target=0)
+        elif step == "reset":
+            ctl.reset()
+        runs.append([t_sim.simulate(topo, cfg) for _ in range(repeats)])
+        arrays.append(topo.route_table)
+    return runs, arrays
+
+
+def test_geometry_morph_aware():
+    """A morph reassigns the route table; the next run must see it, and a
+    reset must give the first result back exactly."""
+    (before,), (after,), (restored,) = _morph_walk(
+        t_spec.TopologySpec("ring_mesh", 16).build_fresh())[0]
+    assert after.dropped > before.dropped
+    assert restored == before
+
+
+def test_geometry_uploads_each_route_array_once():
+    topo = t_spec.TopologySpec("ring_mesh", 16).build_fresh()
+    a = t_sim.build_geometry(topo, "cpu")
+    b = t_sim.build_geometry(topo, "cpu")
+    assert b.route is a.route
+    assert torch.equal(a.route[:-1],
+                       torch.from_numpy(topo.route_table.astype(np.int16)))
+    assert bool((a.route[-1] == -1).all())
+    telemetry.drain()
+    telemetry.enable()
+    try:
+        runs, arrays = _morph_walk(topo, repeats=3)
+    finally:
+        telemetry.disable()
+        out = telemetry.drain()
+    assert [len(r) for r in runs] == [3, 3, 3]
+    # The reset is a fresh array, equal to the first: identity, not content.
+    assert len({id(a) for a in arrays}) == 3
+    assert out["counters"][t_sim.ROUTE_UPLOADED] == 2
+    assert out["counters"][t_sim.ROUTE_REUSED] == 7
+    assert sum(s["name"] == "sim.build_geometry"
+               for s in out["spans"]) == 9
+    cache = topo.__dict__["_torch_geometry_cache"]["route_on_device"]
+    assert list(cache) == ["cpu"] and cache["cpu"][0] is topo.route_table
+
+
+def test_route_table_is_read_only_once_uploaded():
+    topo = t_spec.TopologySpec("ring_mesh", 16).build_fresh()
+    q = int(topo.pe_src_link[0])
+    topo.route_table[q, 15] = t_topo.INVALID  # before any upload: allowed
+    geom = t_sim.build_geometry(topo, "cpu")
+    assert int(geom.route[q, 15]) == t_topo.INVALID
+    with pytest.raises(ValueError, match="read-only"):
+        topo.route_table[q, 15] = 0
+    fixed = topo.route_table.copy()
+    fixed[q, 15] = 0
+    topo.route_table = fixed  # reassignment: uploaded at the next call
+    assert int(t_sim.build_geometry(topo, "cpu").route[q, 15]) == 0
+    assert int(geom.route[q, 15]) == t_topo.INVALID
