@@ -33,6 +33,7 @@ healthy geometry, with a sixth random stream for the drop draws).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional, Union
 
 import numpy as np
@@ -376,6 +377,10 @@ class Geometry:
     n_pes: int
     depth: int
     cap_total: int           # sum of finite queue capacities (lat_sum bound)
+    # The kernel's views (``kernels.noc_step.layout``): one dict for every
+    # geometry that ``build_geometry`` makes of a topology on a device.
+    kernel: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
 
 GEOMETRY_ARRAYS = ("route", "kind", "prio", "cap", "phys", "is_sink",
@@ -413,7 +418,7 @@ def geometry_from_arrays(arrays: dict, *, depth: int, cap_total: int,
 
 def _structural_cache(topo: topo_mod.Topology) -> dict:
     """Route-independent host arrays, cached on the topology object, with
-    ``build_geometry``'s device copies (``on_device``, ``route_on_device``)."""
+    ``build_geometry``'s device state: one entry a device (``devices``)."""
     cache = topo.__dict__.get("_torch_geometry_cache")
     if cache is not None:
         return cache
@@ -442,15 +447,12 @@ def _structural_cache(topo: topo_mod.Topology) -> dict:
     fi = max((len(b) for b in buckets), default=1) or 1
 
     intab = np.full((L + 1, fi), L, np.int32)
-    for q in range(L):
-        if src[q] >= 0:
-            b = buckets[src[q]]
-            intab[q, :len(b)] = b
     cand = np.full((topo.n_phys + 1, fi), L, np.int32)
     phys = topo.link_phys
     for q in range(L):
         if src[q] >= 0:
             b = buckets[src[q]]
+            intab[q, :len(b)] = b
             cand[phys[q], :len(b)] = b
 
     inj_pe = np.full(L + 1, -1, np.int32)
@@ -468,7 +470,7 @@ def _structural_cache(topo: topo_mod.Topology) -> dict:
         inj_pe=inj_pe, cand=cand, intab=intab,
         depth=int(topo.link_cap[finite].max()),
         cap_total=int(topo.link_cap[finite].sum()),
-        on_device={}, route_on_device={},
+        devices={},
     )
     topo.__dict__["_torch_geometry_cache"] = cache
     return cache
@@ -481,22 +483,24 @@ ROUTE_UPLOADED, ROUTE_REUSED = ("geometry.route[uploaded]",
 
 @telemetry.spanned("sim.build_geometry")
 def build_geometry(topo: topo_mod.Topology, device="cuda") -> Geometry:
-    """Device-ready geometry on ``device``.  The structural tables are
-    uploaded once per (topology, device), the route table once per
-    (topology, route-table array, device): while ``topo.route_table`` is
-    the array last uploaded to ``device``, the call reuses its device copy.
-    Reassigning the attribute (a morph, a reset, a repair) takes effect at
-    the next call; an uploaded array is made read-only, so an in-place
-    write after a run raises instead of leaving the device copy stale."""
+    """Device-ready geometry on ``device``.  A topology holds one entry a
+    device: the structural tables, uploaded once; the route table, uploaded
+    once per array (while ``topo.route_table`` is the array last uploaded,
+    the call reuses its device copy); and the ``kernel`` dict that every
+    geometry built from the entry shares.  Reassigning the attribute (a
+    morph, a reset, a repair) takes effect at the next call; an uploaded
+    array is made read-only, so an in-place write after a run raises
+    instead of leaving the device copy stale."""
     c = _structural_cache(topo)
     dev = torch.device(device)
-    static = c["on_device"].get(str(dev))
-    if static is None:
-        static = c["on_device"][str(dev)] = _upload(
-            {k: c[k] for k in GEOMETRY_ARRAYS if k != "route"}, dev)
+    entry = c["devices"].get(str(dev))
+    if entry is None:
+        entry = c["devices"][str(dev)] = dict(
+            static=_upload({k: c[k] for k in GEOMETRY_ARRAYS if k != "route"},
+                           dev), route=(None, None), kernel={})
     host = topo.route_table
     # The entry holds the host array it came from, so its id is not reused.
-    held, route = c["route_on_device"].get(str(dev), (None, None))
+    held, route = entry["route"]
     if held is host:
         telemetry.count(ROUTE_REUSED)
     else:
@@ -505,12 +509,12 @@ def build_geometry(topo: topo_mod.Topology, device="cuda") -> Geometry:
             [host.astype(np.int16), np.full((1, topo.n_pes), -1, np.int16)],
             axis=0)
         route = torch.from_numpy(padded).to(dev)
-        c["route_on_device"][str(dev)] = (host, route)
+        entry["route"] = (host, route)
         telemetry.count(ROUTE_UPLOADED)
-    return Geometry(route=route, **static,
+    return Geometry(route=route, **entry["static"],
                     n_links=topo.n_links, n_phys=topo.n_phys,
                     n_pes=topo.n_pes, depth=c["depth"],
-                    cap_total=c["cap_total"])
+                    cap_total=c["cap_total"], kernel=entry["kernel"])
 
 
 # ---------------------------------------------------------------------------
@@ -694,17 +698,9 @@ def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
               arb_iters=arb_iters, trace=trace, faults=faults,
               fault_u=fault_u, strict_barrier=strict_barrier,
               watchdog=watchdog, diagnostics=diagnostics)
-    if backend == "cuda":
-        if dev.type != "cuda":
-            raise ValueError("backend='cuda' needs a geometry on a CUDA "
-                             "device")
-        ql, m_scal, m_kind, passes, ph_done = noc_step.run_fused(
-            geom, inj_s, dst_s, **kw)
-    elif backend == "torch":
-        ql, m_scal, m_kind, passes, ph_done = noc_step.run_plain(
-            geom, inj_s, dst_s, **kw)
-    else:  # pragma: no cover - SimConfig validates first
-        raise ValueError(f"unknown simulator backend {backend!r}")
+    # SimConfig validates the backend; run_fused refuses a CPU geometry.
+    run = noc_step.run_fused if backend == "cuda" else noc_step.run_plain
+    ql, m_scal, m_kind, passes, ph_done = run(geom, inj_s, dst_s, **kw)
     telemetry.kernel("noc_step.passes", backend=backend, cycles=cycles,
                      passes=passes)
     kind_oh = geom.kind[None, :] == torch.arange(
@@ -731,7 +727,8 @@ def _run_core(geom: Geometry, points: list[SweepPoint], *, cycles: int,
 
 # Host-side reachability cache: FaultSpec is frozen/hashable and the
 # route walk is pure, so one walk serves every point sharing (topology,
-# fault set) in a sweep grid.
+# fault set) in a sweep grid.  An entry holds a weak reference to its
+# topology: a later one at the same address is not served it.
 _REACH_CACHE: dict = {}
 
 
@@ -740,16 +737,16 @@ def _fault_reachability(topo: topo_mod.Topology,
                         faults: Optional[FaultSpec]) -> float:
     if not faults:
         return topo.reachable_frac  # 1.0 healthy; baked value if repaired
-    key = (id(topo), topo.name, faults)
+    key = (id(topo), faults)
     hit = _REACH_CACHE.get(key)
-    if hit is None:
+    if hit is None or hit[0]() is not topo:
         dead = faults.dead_queue_mask(topo)
-        hit = (topo.reachable_frac if not dead.any()
+        hit = (weakref.ref(topo), topo.reachable_frac if not dead.any()
                else topo_mod.reachable_fraction(topo, dead))
         if len(_REACH_CACHE) > 512:
             _REACH_CACHE.clear()
         _REACH_CACHE[key] = hit
-    return hit
+    return hit[1]
 
 
 def _to_result(topo: topo_mod.Topology, cfg: SimConfig, m: Metrics,

@@ -559,33 +559,27 @@ def remote_share(geom, cluster: int) -> dict:
     ``cluster``: ``channel`` when the row's target channel (whose maximum
     it raises and reads) sits in another CTA, ``next_row`` when the next
     queue (whose flags, maximum and sender slot it reads or raises) does."""
-    lp1, np1 = geom.route.shape[0], geom.cand.shape[0]
-    if cluster > 1:
-        rows, chans = locality_order(geom)
-    else:
-        rows, chans = np.arange(lp1), np.arange(np1)
-    row_at, chan_at = np.empty(lp1, np.int64), np.empty(np1, np.int64)
-    row_at[rows], chan_at[chans] = np.arange(lp1), np.arange(np1)
-    rrank = row_at // -(-lp1 // cluster)
-    crank = chan_at // -(-np1 // cluster)
-    route = geom.route.cpu().numpy().astype(np.int64)[:-1]
+    lay = layout(geom, cluster)
+    lp1, np1 = geom.n_links + 1, geom.n_phys + 1
+    route = lay.route.cpu().numpy().astype(np.int64)[:-1]   # kernel order
     live = route >= 0
     hop = np.clip(route, 0, lp1 - 1)
-    own = np.broadcast_to(rrank[:-1, None], route.shape)
-    phys = geom.phys.cpu().numpy()
+    own = np.arange(lp1 - 1)[:, None] // -(-lp1 // cluster)
+    chan = lay.phys.cpu().numpy()[hop] // -(-np1 // cluster)
 
     def share(remote) -> float:
         return float(remote[live].mean()) if live.any() else 0.0
-    return {"channel": share(crank[phys[hop]] != own),
-            "next_row": share(rrank[hop] != own)}
+    return {"channel": share(chan != own),
+            "next_row": share(hop // -(-lp1 // cluster) != own)}
 
 
 class Layout(NamedTuple):
-    """The kernel's static operands in its row and channel order, on the
-    geometry's device: each table permuted, ids renumbered, and the
-    original id of each row (``orig``).  ``rows`` / ``row_at`` (int64)
-    map kernel positions to geometry rows and back; None when the order
-    is the geometry's own."""
+    """The kernel's view of a geometry, on its device: the static tables in
+    the kernel's row and channel order (each permuted, ids renumbered), the
+    original id of each row (``orig``) and the route table in that order
+    (its rows, and the ids it holds; -1 stays -1).  ``rows`` / ``row_at``
+    (int64) map kernel positions to geometry rows and back; None when the
+    order is the geometry's own, whose route is ``geom.route`` itself."""
 
     kind: torch.Tensor
     prio: torch.Tensor
@@ -597,47 +591,76 @@ class Layout(NamedTuple):
     orig: torch.Tensor
     rows: torch.Tensor | None
     row_at: torch.Tensor | None
+    route: torch.Tensor | None = None
 
 
-# Layouts by (static tables, locality order?): the tables of a topology are
-# built once per device (core.sim caches them), so the key is their
-# identity; the entry holds the cand tensor to check it is still the same.
-_LAYOUTS: dict = {}
+# The geometry's static tables: ``core.sim.GEOMETRY_ARRAYS`` but the route.
+_STATIC = ("kind", "prio", "cap", "phys", "is_sink", "pe_src_link", "inj_pe",
+           "cand", "intab")
 
 
 def layout(geom, cluster: int) -> Layout:
-    """The kernel's ``Layout`` for ``geom``: the geometry's own order at
-    C = 1, ``locality_order`` above it (so fewer accesses cross CTAs)."""
-    key = (id(geom.cand), cluster > 1)
-    hit = _LAYOUTS.get(key)
-    if hit is not None and hit[0] is geom.cand:
-        return hit[1]
-    dev = geom.cand.device
-    lp1 = geom.route.shape[0]
+    """The kernel's view of ``geom``: the geometry's own order at C = 1,
+    ``locality_order`` above it (so fewer accesses cross CTAs).  Checked
+    and built once per order and kept in ``geom.kernel``, which
+    ``core.sim.build_geometry`` shares among a fabric's geometries on a
+    device: the static part while the geometry holds the tensors (and
+    depth) it came from, the route beside it while ``geom.route`` does, so
+    a new route array on the same fabric reuses the static part."""
+    local = cluster > 1
+    static = _kept(geom, local,
+                   [geom.depth, *(getattr(geom, k) for k in _STATIC)],
+                   lambda: _static_view(geom, local))
+    return _kept(geom, (local, "route"), [geom.route, static],
+                 lambda: static._replace(route=_kernel_route(geom, static)))
+
+
+def _kept(geom, key, sources: list, build):
+    """``geom.kernel[key]`` while it was built from these very objects,
+    tensors unwritten since (a write in place moves a tensor's version);
+    else ``build()``, kept in its place."""
+    now = [(x, getattr(x, "_version", None)) for x in sources]
+    held = geom.kernel.get(key)
+    if held is None or any(a is not b or u != v
+                           for (a, u), (b, v) in zip(held[0], now)):
+        held = geom.kernel[key] = (now, build())
+    return held[1]
+
+
+def _static_view(geom, local: bool) -> Layout:
+    _check_geometry(geom)
+    dev, lp1 = geom.cand.device, geom.n_links + 1
     cont = torch.zeros(lp1, dtype=torch.uint8, device=dev)
     cont[geom.cand.reshape(-1).long()] = 1
     cont[lp1 - 1] = 0
-    if cluster == 1:
-        out = Layout(geom.kind, geom.prio, geom.cap, geom.phys,
-                     geom.is_sink, geom.inj_pe, cont,
-                     torch.arange(lp1, dtype=torch.int16, device=dev),
-                     None, None)
-    else:
-        order, chan_order = locality_order(geom)
-        rows = torch.from_numpy(order).to(dev)
-        row_at = torch.empty_like(rows)
-        row_at[rows] = torch.arange(lp1, device=dev)
-        chan_at = torch.empty(len(chan_order), dtype=torch.int64, device=dev)
-        chan_at[torch.from_numpy(chan_order).to(dev)] = torch.arange(
-            len(chan_order), device=dev)
-        out = Layout(geom.kind[rows].contiguous(), geom.prio[rows].contiguous(),
-                     geom.cap[rows].contiguous(),
-                     chan_at[geom.phys[rows].long()].to(torch.int32),
-                     geom.is_sink[rows].contiguous(),
-                     geom.inj_pe[rows].contiguous(), cont[rows].contiguous(),
-                     rows.to(torch.int16), rows, row_at)
-    _LAYOUTS[key] = (geom.cand, out)
-    return out
+    if not local:
+        return Layout(geom.kind, geom.prio, geom.cap, geom.phys,
+                      geom.is_sink, geom.inj_pe, cont,
+                      torch.arange(lp1, dtype=torch.int16, device=dev),
+                      None, None)
+    order, chan_order = locality_order(geom)
+    rows = torch.from_numpy(order).to(dev)
+    row_at = torch.empty_like(rows)
+    row_at[rows] = torch.arange(lp1, device=dev)
+    chan_at = torch.empty(len(chan_order), dtype=torch.int64, device=dev)
+    chan_at[torch.from_numpy(chan_order).to(dev)] = torch.arange(
+        len(chan_order), device=dev)
+    return Layout(geom.kind[rows].contiguous(), geom.prio[rows].contiguous(),
+                  geom.cap[rows].contiguous(),
+                  chan_at[geom.phys[rows].long()].to(torch.int32),
+                  geom.is_sink[rows].contiguous(),
+                  geom.inj_pe[rows].contiguous(), cont[rows].contiguous(),
+                  rows.to(torch.int16), rows, row_at)
+
+
+def _kernel_route(geom, static: Layout) -> torch.Tensor:
+    _check_tensor("geometry field 'route'", geom.route, torch.int16,
+                  (geom.n_links + 1, geom.n_pes), geom.cand.device)
+    if static.rows is None:
+        return geom.route
+    # Each id's kernel position, and -1 (INVALID) at index -1.
+    at = torch.cat([static.row_at, static.row_at.new_full((1,), -1)])
+    return at.to(torch.int16)[geom.route[static.rows].long()]
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -705,13 +728,6 @@ def barrier_cost(cluster: int, threads: int = THREADS,
             "cycles": float(cycles.max()) / iters}
 
 
-_GEOM_FIELDS = {"route": torch.int16, "kind": torch.int32,
-                "prio": torch.int32, "cap": torch.int32,
-                "phys": torch.int32, "is_sink": torch.bool,
-                "pe_src_link": torch.int32, "inj_pe": torch.int32,
-                "cand": torch.int32, "intab": torch.int32}
-
-
 def _check_tensor(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
     if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
             or tuple(t.shape) != tuple(shape)):
@@ -721,14 +737,17 @@ def _check_tensor(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
             f"{t.device}")
 
 
-def _check_narrow(geom, starvation_limit: int) -> None:
-    """The kernel keeps q_len and cap in a byte, wait in 16 bits
-    (saturated at ``starvation_limit``), prio, phys, inj_pe and queue ids
-    in 16 bits.  Refuse what that would not hold exactly."""
-    if not 0 <= starvation_limit <= 0xFFFF:
-        raise ValueError(f"starvation_limit must be in [0, 65535] for the "
-                         f"kernel, got {starvation_limit}")
-    lp1, np1 = geom.route.shape[0], geom.cand.shape[0]
+def _check_geometry(geom) -> None:
+    """Refuse static tables the kernel cannot take: dtypes, shapes and one
+    device, and what its narrowed rows would not hold exactly (q_len and
+    cap in a byte, prio, phys, inj_pe and queue ids in 16 bits)."""
+    lp1, np1, dev = geom.n_links + 1, geom.n_phys + 1, geom.cand.device
+    for name in _STATIC:
+        t = getattr(geom, name)
+        shape = {"pe_src_link": (geom.n_pes,), "cand": (np1, t.shape[-1]),
+                 "intab": (lp1, t.shape[-1])}.get(name, (lp1,))
+        _check_tensor(f"geometry field {name!r}", t, torch.bool
+                      if name == "is_sink" else torch.int32, shape, dev)
     if lp1 > 0x7FFF or np1 > 0x7FFF or geom.depth > 254:
         raise ValueError(f"the kernel takes < 32768 queue rows and channels "
                          f"and depth <= 254, got {lp1}, {np1}, "
@@ -749,63 +768,53 @@ def _check_narrow(geom, starvation_limit: int) -> None:
                            bad))))
 
 
-def _check_inputs(geom, inj_s: torch.Tensor, dst_s: torch.Tensor,
-                  trace=None, faults=None, fault_u=None) -> None:
-    dev = inj_s.device
-    lp1, p_pes = geom.route.shape
-    for name, dtype in _GEOM_FIELDS.items():
-        t = getattr(geom, name)
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"geometry field {name!r} must be a contiguous {dtype} "
-                f"tensor on {dev}, got {t.dtype} on {t.device}")
+def _check_launch(geom, inj_s: torch.Tensor, dst_s: torch.Tensor,
+                  starvation_limit: int, trace=None, faults=None,
+                  fault_u=None) -> None:
+    """Refuse a launch's own operands: the streams, the trace and fault
+    tables, and ``starvation_limit`` (the kernel saturates wait in 16
+    bits).  The geometry's tables are ``layout``'s to check."""
+    dev, p_pes = inj_s.device, geom.n_pes
+    if not 0 <= starvation_limit <= 0xFFFF:
+        raise ValueError(f"starvation_limit must be in [0, 65535] for the "
+                         f"kernel, got {starvation_limit}")
     if (inj_s.dtype != torch.bool or dst_s.dtype != torch.int16
-            or dst_s.device != dev or inj_s.dim() != 3
+            or dst_s.device != dev or geom.cand.device != dev
+            or inj_s.dim() != 3
             or dst_s.shape != inj_s.shape or inj_s.shape[2] != p_pes
             or not inj_s.is_contiguous() or not dst_s.is_contiguous()):
         raise ValueError(
-            "streams must be contiguous [B, cycles, P] tensors on one "
-            f"device: inj bool, dst int16; got {tuple(inj_s.shape)} "
-            f"{inj_s.dtype} and {tuple(dst_s.shape)} {dst_s.dtype}")
-    for name, n in (("kind", lp1), ("prio", lp1), ("cap", lp1),
-                    ("phys", lp1), ("is_sink", lp1), ("inj_pe", lp1),
-                    ("pe_src_link", p_pes)):
-        if tuple(getattr(geom, name).shape) != (n,):
-            raise ValueError(f"geometry field {name!r} must have shape "
-                             f"({n},), got {tuple(getattr(geom, name).shape)}")
-    if geom.intab.shape[0] != lp1 or geom.cand.dim() != 2:
-        raise ValueError("cand must be [NP1, Fc] and intab [L+1, Fi]")
+            "streams must be contiguous [B, cycles, P] tensors on the "
+            f"geometry's device: inj bool, dst int16; got "
+            f"{tuple(inj_s.shape)} {inj_s.dtype} and {tuple(dst_s.shape)} "
+            f"{dst_s.dtype} on {dev}")
     batch, cycles = inj_s.shape[:2]
+    want = []  # (name, tensor, dtype, shape)
     if trace is not None:
         n_phases = trace[0].shape[1] if trace[0].dim() == 3 else 0
-        if n_phases < 1 or len(trace) not in (3, 6):
+        records = len(trace) == 6
+        n_rec = trace[4].shape[1] if records and trace[4].dim() == 2 else 0
+        if (n_phases < 1 or len(trace) not in (3, 6)
+                or (records and n_rec < 1)):
             raise ValueError("trace must be (ph_dst, ph_flits, ph_total) "
                              "[B, n_phases >= 1, P] / [B, n_phases], and "
-                             "in records form (rec_start, rec_dst, rec_end)")
-        for name, t in zip(("ph_dst", "ph_flits"), trace[:2]):
-            _check_tensor(name, t, torch.int32, (batch, n_phases, p_pes),
-                          dev)
-        _check_tensor("ph_total", trace[2], torch.int32, (batch, n_phases),
-                      dev)
-        if len(trace) == 6:
-            n_rec = trace[4].shape[1] if trace[4].dim() == 2 else 0
-            if n_rec < 1:
-                raise ValueError("record tables must be [B, R >= 1]")
-            _check_tensor("rec_start", trace[3], torch.int32,
-                          (batch, n_phases, p_pes), dev)
-            for name, t in zip(("rec_dst", "rec_end"), trace[4:]):
-                _check_tensor(name, t, torch.int32, (batch, n_rec), dev)
+                             "in records form (rec_start, rec_dst, rec_end) "
+                             "[B, n_phases, P] / [B, R >= 1]")
+        ph, rec = (batch, n_phases, p_pes), (batch, n_rec)
+        want += [(n, t, torch.int32, sh) for n, t, sh in zip(
+            ("ph_dst", "ph_flits", "ph_total", "rec_start", "rec_dst",
+             "rec_end"), trace, (ph, ph, ph[:2], ph, rec, rec))]
     if faults is not None:
         n_faults = faults[0].shape[1] if faults[0].dim() == 2 else 0
         if n_faults < 1 or fault_u is None:
             raise ValueError("faults need [B, F >= 1] entries and the "
                              "[B, cycles, F] fault_u stream")
-        for name, t, dtype in zip(("fault links", "fault drop_p",
-                                   "fault onset"), faults,
-                                  (torch.int32, torch.float32, torch.int32)):
-            _check_tensor(name, t, dtype, (batch, n_faults), dev)
-        _check_tensor("fault_u", fault_u, torch.float32,
-                      (batch, cycles, n_faults), dev)
+        want += zip(("fault links", "fault drop_p", "fault onset", "fault_u"),
+                    (*faults, fault_u), (torch.int32, torch.float32,
+                                         torch.int32, torch.float32),
+                    ((batch, n_faults),) * 3 + ((batch, cycles, n_faults),))
+    for name, t, dtype, shape in want:
+        _check_tensor(name, t, dtype, shape, dev)
 
 
 def plan_for(geom, trace=None, faults=None,
@@ -843,7 +852,8 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
     (SM cycles of each CTA's barrier waits and of its whole cycle loop, a
     [B, C, 2] int64 buffer) and keeps them as a ``noc_step.clock`` kernel
     record; the host work before the launch is the ``noc_step.prepare``
-    span.
+    span: the launch's own checks and buffers, and ``layout`` (built at a
+    geometry's first launch).  Nothing is read back before the launch.
     """
     with telemetry.span("noc_step.prepare"):
         dev = inj_s.device
@@ -851,12 +861,12 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
             raise ValueError(
                 f"run_fused launches the CUDA kernel and takes CUDA tensors, "
                 f"got {dev}; run_plain runs the plain twin on any device")
-        _check_inputs(geom, inj_s, dst_s, trace, faults, fault_u)
-        _check_narrow(geom, starvation_limit)
+        _check_launch(geom, inj_s, dst_s, starvation_limit, trace, faults,
+                      fault_u)
         cluster, _ = plan_for(geom, trace, faults, cluster_size)
+        lay = layout(geom, cluster)
         batch, cycles, p_pes = inj_s.shape
-        lp1 = geom.route.shape[0]
-        np1 = geom.cand.shape[0]
+        lp1, np1 = geom.n_links + 1, geom.n_phys + 1
         n_phases = 0 if trace is None else trace[0].shape[1]
         n_faults = 0 if faults is None else faults[0].shape[1]
         lib = load_library()
@@ -866,22 +876,14 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
         m_kind = torch.empty((batch, N_KIND_ROWS, 8), **i32)
         passes = torch.empty((batch,), **i32)
         ph_done = torch.empty((batch, n_phases), **i32)
-        lay = layout(geom, cluster)
-        route = geom.route
-        if lay.rows is not None:
-            # The route table in the kernel's order: its rows, and the ids it
-            # holds (-1 stays -1); the fault entries' queue ids likewise.
-            hop = geom.route[lay.rows].long()
-            route = torch.where(hop >= 0, lay.row_at[hop.clamp(min=0)],
-                                -1).to(torch.int16)
-            if faults is not None:
-                faults = (lay.row_at[faults[0].long()].to(torch.int32),
-                          *faults[1:])
-        ph_ptrs = (0, 0, 0) if trace is None else tuple(
-            t.data_ptr() for t in trace[:3])
-        rec_ptrs = (0, 0, 0) if trace is None or len(trace) == 3 else tuple(
-            t.data_ptr() for t in trace[3:])
-        n_rec = 0 if rec_ptrs[0] == 0 else trace[4].shape[1]
+        if faults is not None and lay.rows is not None:
+            # The fault entries' queue ids in the kernel's order.
+            faults = (lay.row_at[faults[0].long()].to(torch.int32),
+                      *faults[1:])
+        # The phase tables, then the record tables (null where absent).
+        tabs = list(trace or ()) + [None] * (6 - len(trace or ()))
+        t_ptrs = [0 if t is None else t.data_ptr() for t in tabs]
+        n_rec = 0 if tabs[4] is None else tabs[4].shape[1]
         f_ptrs = (0, 0, 0, 0) if faults is None else (
             fault_u.data_ptr(), *(t.data_ptr() for t in faults))
         # The kernel's barrier-wait and cycle-loop clocks of each CTA, only
@@ -890,12 +892,13 @@ def run_fused(geom, inj_s: torch.Tensor, dst_s: torch.Tensor, *,
                              device=dev) if telemetry.is_on() else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.noc_step_launch(
-        inj_s.data_ptr(), dst_s.data_ptr(), route.data_ptr(),
+        inj_s.data_ptr(), dst_s.data_ptr(), lay.route.data_ptr(),
         lay.kind.data_ptr(), lay.prio.data_ptr(), lay.cap.data_ptr(),
         lay.phys.data_ptr(), lay.is_sink.data_ptr(),
         lay.inj_pe.data_ptr(), lay.contends.data_ptr(), lay.orig.data_ptr(),
         q_len.data_ptr(), m_scal.data_ptr(), m_kind.data_ptr(),
-        passes.data_ptr(), *ph_ptrs, ph_done.data_ptr(), *rec_ptrs, *f_ptrs,
+        passes.data_ptr(), *t_ptrs[:3], ph_done.data_ptr(), *t_ptrs[3:],
+        *f_ptrs,
         0 if clock is None else clock.data_ptr(), batch, lp1, p_pes, np1,
         geom.depth, cycles, warmup, starvation_limit, arb_iters,
         1 if diagnostics else 0, score_pow2(lp1), n_phases,

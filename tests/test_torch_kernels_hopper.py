@@ -3,7 +3,9 @@
 On the CPU: ``noc_step.cluster_plan`` (the cluster size and per-CTA shared
 memory of the NoC kernel) against a layout computed by hand, its choice
 on the main path's geometries and its refusals; the share of fan-in reads
-that cross CTAs; the kernel's refusal of geometries its narrowed rows
+that cross CTAs; the kernel's view of a geometry (``layout``: built once
+per fabric, order and route, checked afresh for a replaced table, freed
+with its topology); the kernel's refusal of geometries its narrowed rows
 would not hold exactly; ``ssd_scan.plan`` (blocks per (batch, head),
 threads and shared memory of the SSD kernels) against a layout computed
 by hand, its choice at Zamba2's shape and at a large batch, mamba2-1.3b's
@@ -30,6 +32,8 @@ runs without the suite's conftest::
         tests/test_torch_kernels_hopper.py
 """
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -140,8 +144,16 @@ def test_locality_order_keeps_a_node_together():
     assert torch.equal(torch.from_numpy(chans)[lay.phys.long()],
                        geom.phys[lay.rows].long())
     assert torch.equal(lay.cap, geom.cap[lay.rows])
+    # The route in the kernel's order: its rows, and the ids it holds
+    # renumbered; -1 stays -1.
+    row_at = np.argsort(rows)
+    hop = geom.route.numpy().astype(np.int64)[rows]
+    want = np.where(hop >= 0, row_at[np.maximum(hop, 0)], -1)
+    assert lay.route.dtype == torch.int16 and (want == -1).any()
+    assert np.array_equal(lay.route.numpy(), want)
     one = t_noc.layout(geom, 1)
     assert one.rows is None and one.cap is geom.cap
+    assert one.route is geom.route
 
 
 def test_contending_rows_are_the_queues_of_the_candidate_table():
@@ -166,18 +178,102 @@ def test_contending_rows_are_the_queues_of_the_candidate_table():
 
 
 def test_run_fused_refuses_what_the_narrow_rows_cannot_hold():
+    """The geometry's refusals come from its view (``layout``), once per
+    geometry; ``starvation_limit`` is the launch's own operand."""
     _, geom = _geometry("ring_mesh", 16)
+    inj = torch.zeros((2, 5, 16), dtype=torch.bool)
+    dst = torch.zeros((2, 5, 16), dtype=torch.int16)
     with pytest.raises(ValueError, match="starvation_limit"):
-        t_noc._check_narrow(geom, 70_000)
-    t_noc._check_narrow(geom, 8)  # the simulator's own geometry fits
+        t_noc._check_launch(geom, inj, dst, 70_000)
+    t_noc._check_launch(geom, inj, dst, 8)
+    t_noc.layout(geom, 1)  # the simulator's own geometry fits
     cap = geom.cap.clone()
     sink = int(torch.nonzero(geom.is_sink)[0])
     cap[sink] = 1 << 30  # an unbounded sink: still fine
-    t_noc._check_narrow(dataclasses.replace(geom, cap=cap), 8)
+    t_noc.layout(dataclasses.replace(geom, cap=cap), 1)
     inject = int(geom.pe_src_link[0])
     cap[inject] = 300  # an inject queue past a byte: refused
     with pytest.raises(ValueError, match="unbounded queue"):
-        t_noc._check_narrow(dataclasses.replace(geom, cap=cap), 8)
+        t_noc.layout(dataclasses.replace(geom, cap=cap), 1)
+    with pytest.raises(ValueError, match="depth <= 254"):
+        t_noc.layout(dataclasses.replace(geom, depth=300), 1)
+
+
+def test_a_geometry_view_is_built_once_for_every_geometry_of_a_fabric():
+    """``layout`` keeps its view in ``geom.kernel``: every geometry that
+    ``build_geometry`` makes of a topology on a device is served the same
+    objects; one carried from arrays has a dict of its own."""
+    topo, geom = _geometry("flat_mesh", 64)
+    for cluster in (1, 4):
+        lay = t_noc.layout(geom, cluster)
+        again = sim.build_geometry(topo, "cpu")
+        assert again is not geom and again.kernel is geom.kernel
+        assert t_noc.layout(again, cluster) is lay
+        assert t_noc.layout(geom, cluster) is lay
+    carried = sim.geometry_from_arrays(
+        {k: getattr(geom, k).numpy() for k in sim.GEOMETRY_ARRAYS},
+        depth=geom.depth, cap_total=geom.cap_total, device="cpu")
+    assert carried.kernel == {} and carried.kernel is not geom.kernel
+    assert torch.equal(t_noc.layout(carried, 4).route, lay.route)
+
+
+@pytest.mark.parametrize("field,bad,match", [
+    ("cap", lambda t: t - (1 << 30), "negative capacity"),
+    ("prio", lambda t: t + 0x8000, "prio outside int16"),
+    ("kind", lambda t: t[:-1].clone(), "'kind' must be"),
+    ("cand", lambda t: t.to(torch.int64), "'cand' must be"),
+])
+def test_a_replaced_table_is_checked_not_served_the_view(field, bad, match):
+    """``dataclasses.replace`` shares the view dict: a geometry holding
+    another tensor gets a view built and checked afresh, so a bad table is
+    refused; the first geometry keeps its view."""
+    _, geom = _geometry("ring_mesh", 64)
+    lay = t_noc.layout(geom, 3)
+    worse = dataclasses.replace(geom, **{field: bad(getattr(geom, field))})
+    assert worse.kernel is geom.kernel
+    with pytest.raises(ValueError, match=match):
+        t_noc.layout(worse, 3)
+    assert t_noc.layout(geom, 3) is lay
+
+
+def test_a_new_route_reuses_the_static_view(monkeypatch):
+    """A route reassignment (a morph) keeps the static part of the view,
+    with no second ``locality_order``, and rebuilds the kernel-order route
+    once; the view holds one route an order."""
+    topo = TopologySpec("flat_mesh", 64).build_fresh()
+    geom = sim.build_geometry(topo, "cpu")
+    lay = t_noc.layout(geom, 4)
+    calls = []
+    order = t_noc.locality_order
+    monkeypatch.setattr(t_noc, "locality_order",
+                        lambda g: calls.append(g) or order(g))
+    moved = topo.route_table.copy()
+    moved[int(topo.pe_src_link[0]), 5] = -1
+    topo.route_table = moved
+    morphed = sim.build_geometry(topo, "cpu")
+    new = t_noc.layout(morphed, 4)
+    assert new.kind is lay.kind and new.rows is lay.rows
+    assert new.route is not lay.route and not torch.equal(new.route,
+                                                          lay.route)
+    assert t_noc.layout(morphed, 4) is new and calls == []
+    hop = morphed.route[new.rows].long()
+    assert torch.equal(new.route.long(), torch.where(
+        hop >= 0, new.row_at[hop.clamp(min=0)], -1))
+    assert sorted(map(str, geom.kernel)) == ["(True, 'route')", "True"]
+
+
+def test_the_view_is_freed_with_its_topology():
+    """No module keeps a view: it lives in the topology's geometry entry
+    and goes with the topology."""
+    assert not hasattr(t_noc, "_LAYOUTS")
+    topo = TopologySpec("flat_mesh", 64).build_fresh()
+    geom = sim.build_geometry(topo, "cpu")
+    lay = t_noc.layout(geom, 4)
+    refs = [weakref.ref(t) for t in (lay.route, lay.kind, lay.contends,
+                                     geom.cand, geom.route)]
+    del topo, geom, lay
+    gc.collect()
+    assert [r() for r in refs] == [None] * len(refs)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ reproduce too.
 import dataclasses
 import json
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -203,8 +204,27 @@ def test_geometry_uploads_each_route_array_once():
     assert out["counters"][t_sim.ROUTE_REUSED] == 7
     assert sum(s["name"] == "sim.build_geometry"
                for s in out["spans"]) == 9
-    cache = topo.__dict__["_torch_geometry_cache"]["route_on_device"]
-    assert list(cache) == ["cpu"] and cache["cpu"][0] is topo.route_table
+    # One entry a device: the statics, the route and the kernel's views.
+    entries = topo.__dict__["_torch_geometry_cache"]["devices"]
+    assert list(entries) == ["cpu"]
+    assert entries["cpu"]["route"][0] is topo.route_table
+    assert a.kernel is b.kernel is entries["cpu"]["kernel"]
+    assert a.kind is entries["cpu"]["static"]["kind"]
+
+
+def test_reachability_is_served_only_to_its_own_topology():
+    """A reachability entry names its topology by a weak reference: a
+    topology at an address that another one held is not served it."""
+    topo = t_spec.TopologySpec("ring_mesh", 16).build_fresh()
+    other = t_spec.TopologySpec("ring_mesh", 16).build_fresh()
+    faults = t_faults.sample_faults(topo, n_dead_links=2, seed=3)
+    want = t_sim._fault_reachability(topo, faults)
+    assert want < 1.0
+    key = (id(topo), faults)
+    assert t_sim._REACH_CACHE[key][0]() is topo
+    t_sim._REACH_CACHE[key] = (weakref.ref(other), -1.0)  # another's entry
+    assert t_sim._fault_reachability(topo, faults) == want
+    assert t_sim._REACH_CACHE[key][0]() is topo
 
 
 def test_route_table_is_read_only_once_uploaded():
