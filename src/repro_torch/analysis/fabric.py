@@ -65,7 +65,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-import warnings
 from typing import Optional
 
 import numpy as np
@@ -74,6 +73,7 @@ import torch
 from repro_torch import telemetry
 from repro_torch.core import packet as pk
 from repro_torch.core import topology as topo_mod
+from repro_torch.core.topology import as_tensor
 
 INVALID = topo_mod.INVALID
 
@@ -210,18 +210,6 @@ def _device(device="cuda") -> torch.device:
     return dev
 
 
-def _on(a, dev: torch.device, dtype=None) -> torch.Tensor:
-    if isinstance(a, np.ndarray) and not a.flags.writeable:
-        # A route table on a device is read-only (core.sim.build_geometry).
-        # The walks only read their tables, so torch's warning that writes
-        # to such a tensor are undefined does not apply.
-        with warnings.catch_warnings():
-            warnings.filterwarnings(
-                "ignore", "The given NumPy array is not writable")
-            return torch.as_tensor(a, device=dev, dtype=dtype)
-    return torch.as_tensor(a, device=dev, dtype=dtype)
-
-
 def occupancy_edges(topo: topo_mod.Topology, *, device="cuda"
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(occupied [n_links, n_pes] bool, edge_src, edge_dst)`` on
@@ -239,11 +227,11 @@ def occupancy_edges(topo: topo_mod.Topology, *, device="cuda"
     """
     dev = _device(device)
     l_n, p = topo.route_table.shape
-    route = _on(topo.route_table, dev).reshape(-1)
-    sink = _on(topo.is_sink, dev)
-    not_src = _on(topo.link_kind != topo_mod.PE_SRC, dev)
+    route = as_tensor(topo.route_table, dev).reshape(-1)
+    sink = as_tensor(topo.is_sink, dev)
+    not_src = as_tensor(topo.link_kind != topo_mod.PE_SRC, dev)
     occ = torch.zeros(l_n * p, dtype=torch.bool, device=dev)
-    q = _on(topo.pe_src_link, dev, torch.int64).repeat_interleave(p)
+    q = as_tensor(topo.pe_src_link, dev, torch.int64).repeat_interleave(p)
     d = torch.arange(p, device=dev).repeat(topo.n_pes)
     occ[q * p + d] = True
     edge_parts = []
@@ -275,22 +263,20 @@ def walk_terminals(route, is_sink, dead=None, *,
     (``torch.gather`` along dim 0).
     """
     dev = _device(device)
-    nxt = _on(route, dev, torch.int64)
+    nxt = as_tensor(route, dev, torch.int64)
     l_n, p = nxt.shape
     bad = l_n
     if dead is not None:
-        dead_t = _on(dead, dev, torch.bool)
+        dead_t = as_tensor(dead, dev, torch.bool)
         nxt[dead_t] = INVALID
         tgt = nxt.clamp(0, l_n - 1)
         nxt[(nxt >= 0) & dead_t[tgt]] = INVALID
     ptr = nxt.masked_fill(nxt < 0, bad)
-    sink_rows = _on(np.nonzero(np.asarray(is_sink))[0], dev, torch.int64)
+    sink_rows = as_tensor(np.nonzero(np.asarray(is_sink))[0], dev, torch.int64)
     ptr[sink_rows, :] = sink_rows[:, None]
     ptr = torch.cat([ptr, torch.full((1, p), bad, dtype=torch.int64,
                                      device=dev)])
-    for _ in range(int(np.ceil(np.log2(max(l_n, 2)))) + 1):
-        ptr = torch.gather(ptr, 0, ptr)
-    return ptr[:l_n].to(torch.int32)
+    return topo_mod.double_pointers(ptr, l_n)[:l_n].to(torch.int32)
 
 
 def _find_cycle(n_nodes: int, esrc: np.ndarray,
@@ -387,7 +373,7 @@ def _check_liveness(topo: topo_mod.Topology, allow_severed: bool,
     dev = _device(device)
     term = walk_terminals(topo.route_table, topo.is_sink, topo.dead_queues,
                           device=dev)
-    term = term[_on(topo.pe_src_link, dev, torch.int64)].cpu().numpy()
+    term = term[as_tensor(topo.pe_src_link, dev, torch.int64)].cpu().numpy()
     expect = np.broadcast_to(topo.pe_eject_link[None, :], (p, p))
     delivered = term == expect
     severed = term == l_n
@@ -458,9 +444,9 @@ def _check_consistency(topo: topo_mod.Topology,
                       "expected": [l_n, p]},))
 
     dev = _device(device)
-    route = _on(topo.route_table, dev, torch.int64)
-    dead = _on(topo.dead_queues if topo.dead_queues is not None
-               else np.zeros(l_n, bool), dev, torch.bool)
+    route = as_tensor(topo.route_table, dev, torch.int64)
+    dead = as_tensor(topo.dead_queues if topo.dead_queues is not None
+                     else np.zeros(l_n, bool), dev, torch.bool)
 
     def bad_rows(mask2d: torch.Tensor, label: str) -> int:
         n = int(mask2d.sum())
@@ -481,11 +467,11 @@ def _check_consistency(topo: topo_mod.Topology,
     # Node-locality: every live hop leaves the queue's destination node —
     # the invariant the simulator's structural fan-in candidate tables
     # (and hence arbitration + enqueue) are built on.
-    src_node = _on(topo.link_src_node, dev)
-    dst_node = _on(topo.link_dst_node, dev)
+    src_node = as_tensor(topo.link_src_node, dev)
+    dst_node = as_tensor(topo.link_dst_node, dev)
     n_bad += bad_rows(live & (src_node[nxt_c] != dst_node[:, None]),
                       "non_node_local")
-    n_bad += bad_rows(live & _on(kind == topo_mod.PE_SRC, dev)[nxt_c],
+    n_bad += bad_rows(live & as_tensor(kind == topo_mod.PE_SRC, dev)[nxt_c],
                       "routes_into_inject_buffer")
     n_bad += bad_rows(live & dead[nxt_c], "routes_into_dead_queue")
     n_bad += bad_rows(live & dead[:, None], "dead_queue_row_not_invalid")

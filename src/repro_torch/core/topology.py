@@ -45,8 +45,10 @@ processed first at the router; PE injection last):
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
+import torch
 
 from repro_torch import telemetry
 from repro_torch.core import packet as pk
@@ -433,6 +435,41 @@ def build_flat_mesh(n_pes: int, queue_depth: int = 2,
 _FABRIC_KINDS = (RING, RS2R, R2RS, MESH)
 
 
+# The telemetry counter of each device's route walks, one a walk.
+WALK_COUNTERS = {"cuda": "topology.walks[cuda]",
+                 "cpu": "topology.walks[cpu]"}
+
+
+def as_tensor(a, dev: torch.device, dtype=None) -> torch.Tensor:
+    """``a`` as a tensor on ``dev`` (no copy where it is already there)."""
+    if isinstance(a, np.ndarray) and not a.flags.writeable:
+        # A route table on a device is read-only (core.sim.build_geometry).
+        # The walks only read their tables, so torch's warning that writes
+        # to such a tensor are undefined does not apply.
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", "The given NumPy array is not writable")
+            return torch.as_tensor(a, device=dev, dtype=dtype)
+    return torch.as_tensor(a, device=dev, dtype=dtype)
+
+
+def walk_doublings(l_n: int) -> int:
+    """Table compositions that carry every walk of up to ``l_n`` hops to
+    its end: ``ceil(log2(l_n)) + 1``."""
+    return int(np.ceil(np.log2(max(l_n, 2)))) + 1
+
+
+def double_pointers(ptr: torch.Tensor, l_n: int) -> torch.Tensor:
+    """Pointer doubling: ``ptr`` (int64 [rows, n_pes], column ``d`` the
+    next queue of a flit for dest ``d``; the rows past ``l_n`` absorbing
+    states) composed with itself ``walk_doublings(l_n)`` times by
+    ``torch.gather`` along dim 0, on ``ptr``'s device.  Each entry then
+    holds where its walk ends: an absorbing row, or a queue on a loop."""
+    for _ in range(walk_doublings(l_n)):
+        ptr = torch.gather(ptr, 0, ptr)
+    return ptr
+
+
 @telemetry.spanned("topology.walk_classify")
 def _walk_classify(route: np.ndarray, is_sink: np.ndarray,
                    dead: np.ndarray | None = None) -> np.ndarray:
@@ -442,27 +479,30 @@ def _walk_classify(route: np.ndarray, is_sink: np.ndarray,
 
     Computed by pointer doubling with two absorbing states (OK / BAD):
     ``ceil(log2(n_links)) + 1`` table compositions classify every
-    (queue, dest) pair at once — no per-pair walking.
+    (queue, dest) pair at once — no per-pair walking.  The doubling runs
+    on the card when there is one, else on the CPU; the answer is the
+    same on either.
     """
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    telemetry.count(WALK_COUNTERS[dev.type])
     l_n, p = route.shape
     a_ok, a_bad = l_n, l_n + 1
-    nxt = route
+    nxt = as_tensor(route, dev).to(torch.int64, copy=True)
+    tgt = nxt.clamp(0, l_n - 1)
+    # BAD: an INVALID entry, a dead row, or a hop into a dead queue.
+    bad = nxt < 0
     if dead is not None:
-        nxt = np.where(dead[:, None], INVALID, nxt)
-    tgt = np.clip(nxt, 0, l_n - 1)
-    tgt_dead = dead[tgt] if dead is not None else np.zeros_like(tgt, bool)
-    ptr = np.where(nxt < 0, a_bad,
-                   np.where(tgt_dead, a_bad,
-                            np.where(is_sink[tgt], a_ok, nxt))).astype(
-        np.int32)
-    ptr = np.vstack([ptr,
-                     np.full((1, p), a_ok, np.int32),
-                     np.full((1, p), a_bad, np.int32)])
-    doublings = int(np.ceil(np.log2(max(l_n, 2)))) + 1
-    telemetry.count("topology.walk_doublings", doublings)
-    for _ in range(doublings):
-        ptr = np.take_along_axis(ptr, ptr, axis=0)
-    return ptr[:l_n] == a_ok
+        dead_t = as_tensor(dead, dev)
+        bad |= dead_t[:, None] | dead_t[tgt]
+    # OK: a hop into a sink (unless BAD).
+    nxt.masked_fill_(as_tensor(is_sink, dev)[tgt], a_ok)
+    nxt.masked_fill_(bad, a_bad)
+    del tgt, bad
+    ptr = torch.cat([nxt, torch.tensor([[a_ok], [a_bad]], device=dev)
+                     .expand(2, p)])
+    del nxt
+    telemetry.count("topology.walk_doublings", walk_doublings(l_n))
+    return (double_pointers(ptr, l_n)[:l_n] == a_ok).cpu().numpy()
 
 
 # Public name: the fabric analysis and fault repair build on this
@@ -542,13 +582,23 @@ def reroute_avoiding(topo: Topology, dead: np.ndarray
     inf = np.int32(1 << 20)
     dist = np.full((n_nodes + 1, p), inf, np.int32)
     dist[np.arange(p), np.arange(p)] = 0
+    # A round's minimum over each node's candidates is taken one candidate
+    # column at a time, in two [n_nodes, p] buffers: gathering the whole
+    # [n_nodes, k_max, p] at once (53 MB at 1024 PEs) took up to twice as
+    # long a round on the host of an H100 machine.
+    best = np.empty((n_nodes, p), np.int32)
+    col = np.empty_like(best)
     for _ in range(4 * n_nodes):
         telemetry.count("topology.bellman_ford_rounds")
-        best = dist[cand_t].min(axis=1) + 1
-        new = np.minimum(dist[:n_nodes], best)
-        if np.array_equal(new, dist[:n_nodes]):
+        np.take(dist, cand_t[:, 0], axis=0, out=best)
+        for j in range(1, k_max):
+            np.take(dist, cand_t[:, j], axis=0, out=col)
+            np.minimum(best, col, out=best)
+        best += 1
+        np.minimum(dist[:n_nodes], best, out=best)
+        if np.array_equal(best, dist[:n_nodes]):
             break
-        dist[:n_nodes] = new
+        dist[:n_nodes] = best
 
     # Best out-queue per (node, dest); unreachable -> INVALID; at the
     # destination's own node -> its eject buffer.

@@ -7,8 +7,10 @@
   bypass, seeded route-table defects, repaired fabrics, the BFS-refill
   cycle — the config grid up to 64 PEs with its morphs and repairs, and
   ``tests/data/torch_port_fabric_reference.json`` up to 256 PEs; the
-  walks themselves, the cache, the pre-flights of ``Experiment`` and
-  ``sweep``, ``measure_repair``'s whole dict and the CLI.
+  walks themselves (``walk_terminals``; ``core.topology``'s
+  ``walk_classify`` on every row, and ``reroute_avoiding``), the cache,
+  the pre-flights of ``Experiment`` and ``sweep``, ``measure_repair``'s
+  whole dict and the CLI.
 * ``repro_torch.analysis.lint_torch``: seeded TORCH001 / TORCH002 /
   TORCH004 caught, cold code and cold parts of hot functions not
   flagged, the allowlist, the CLI, and the port itself clean.
@@ -25,6 +27,7 @@ import torch
 from repro.analysis import fabric as r_fabric
 from repro.core import experiment as r_exp
 from repro.core import spec as r_spec
+from repro.core import topology as r_topo
 from repro import faults as r_faults
 from repro_torch.analysis import fabric, lint_torch
 from repro_torch.core import experiment as t_exp
@@ -260,6 +263,44 @@ def test_walk_terminals_equal_reference_and_walk_classify(case):
     assert np.array_equal(delivered, ok[tt.pe_src_link])
     occ, _, _ = fabric.occupancy_edges(tt, device=CPU)
     assert np.array_equal(occ.numpy(), r_fabric.occupancy_edges(rt)[0])
+
+
+@pytest.mark.parametrize("case", ["ring_mesh_16", "ring_mesh_64",
+                                  "flat_mesh_64", "cyclic_morph",
+                                  "repaired_ring_64"])
+def test_walk_classify_and_reroute_equal_reference(case):
+    """The port's walk (torch pointer doubling) against the reference's
+    numpy walk on every (queue, dest) row, with no dead mask, the fabric's
+    own dead queues and a sampled one; and ``reroute_avoiding`` around the
+    sampled mask (the repaired fabric: around its own dead queues)."""
+    rs, ts = {"ring_mesh_16": _specs(),
+              "ring_mesh_64": _specs("ring_mesh", 64),
+              "flat_mesh_64": _specs("flat_mesh", 64),
+              "cyclic_morph": _specs("ring_mesh", 16, CYCLIC),
+              "repaired_ring_64": _sampled("ring_mesh", 64, 4, 2)}[case]
+    rt, tt = rs.build_fresh(), ts.build_fresh()
+    assert np.array_equal(tt.route_table, rt.route_table)
+    if tt.dead_queues is not None:
+        dead = tt.dead_queues
+    else:
+        dead = t_faults.sample_faults(tt, n_dead_links=3,
+                                      seed=5).dead_queue_mask(tt)
+        assert np.array_equal(dead, r_faults.sample_faults(
+            rt, n_dead_links=3, seed=5).dead_queue_mask(rt))
+    assert dead.any()
+    for mask in (None, tt.dead_queues, dead):
+        got = t_topo.walk_classify(tt.route_table, tt.is_sink, mask)
+        want = r_topo.walk_classify(rt.route_table, rt.is_sink, mask)
+        assert got.dtype == want.dtype == np.bool_
+        assert np.array_equal(got, want)
+    if case == "cyclic_morph":
+        # The bypass's loops never reach a sink: those pairs read BAD.
+        assert not t_topo.walk_classify(tt.route_table, tt.is_sink).all()
+    route, reach = t_topo.reroute_avoiding(tt, dead)
+    want_route, want_reach = r_topo.reroute_avoiding(rt, dead)
+    assert route.dtype == want_route.dtype
+    assert np.array_equal(route, want_route)
+    assert np.array_equal(reach, want_reach)
 
 
 # ---------------------------------------------------------------------------

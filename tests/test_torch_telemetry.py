@@ -159,6 +159,13 @@ def test_counters_of_a_fault_scenario():
     walks = names.count("topology.walk_classify")
     assert walks == 3
     assert out["counters"]["topology.walk_doublings"] % walks == 0
+    # Each walk counted once, under the device it ran on: the card when
+    # there is one.
+    counters = out["counters"]
+    assert (counters.get("topology.walks[cpu]", 0)
+            + counters.get("topology.walks[cuda]", 0)) == walks
+    on = "cuda" if torch.cuda.is_available() else "cpu"
+    assert counters.get(f"topology.walks[{on}]", 0) == walks
     assert out["counters"]["topology.bellman_ford_rounds"] >= 2
     assert out["counters"]["streams.points"] == 3   # the three legs
     assert [k["name"] for k in out["kernels"]] == ["noc_step.passes"] * 3
