@@ -1,9 +1,10 @@
 """Expert routing shared by the model zoo and the trace front ends: the
-stable top-k (``jax.lax.top_k``'s ties) and DeepSeek-V3's group-limited
-router.  Plain torch with no model or kernel import, so a trace front end
+stable top-k (``jax.lax.top_k``'s ties), DeepSeek-V3's group-limited
+router and LongCat-Flash's softmax router over real and zero-compute
+experts.  Plain torch with no model or kernel import, so a trace front end
 routes tokens without loading the zoo (whose kernel wrappers import
 DTensor: ~6 s of a process's start on the card).  ``models.layers``
-re-exports both."""
+re-exports the first two."""
 from __future__ import annotations
 
 import torch
@@ -44,3 +45,19 @@ def group_limited_top_k(logits, bias, *, n_group: int, topk_group: int,
     if norm:
         weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
     return weights * scaling, experts
+
+
+def softmax_top_k(logits, bias, *, k: int, scaling: float):
+    """LongCat-Flash's router (a softmax over every output, zero-compute
+    experts among them) on router logits (T, E): the weights (T, k)
+    float64 and the output ids (T, k) of each token.
+
+    Scores are softmax(logits) over all E outputs; the choice adds the
+    expert ``bias`` (E,) and takes the ``k`` largest, ties to the lower id
+    as ``top_k`` breaks them.  The weights are the chosen scores times
+    ``scaling``, not renormalised.  The softmax and the choice run in
+    float64, so two choices a rounding could swap lie within ~1e-16 of
+    each other."""
+    scores = torch.softmax(logits.double(), dim=-1)
+    _, experts = top_k(scores + bias.double(), k)
+    return scores.gather(1, experts) * scaling, experts

@@ -16,9 +16,10 @@ a fourth, ``moe_exchange_trace`` (``trace.moe``), a ``TraceRecords``:
   ``ppermute`` steps, with explicit ``source_target_pairs`` destination
   maps) and ``all-to-all`` alongside the reduction collectives;
 * ``moe_exchange_trace`` — one MoE layer's decode-step routing on the
-  device (DeepSeek-V3's group-limited router), its expert-parallel
-  dispatch and combine as two phases in which a source sends to many
-  experts.
+  device (DeepSeek-V3's group-limited router, or LongCat-Flash's softmax
+  over real and identity experts, by the model's keys; iid or
+  topic-skewed tokens), its expert-parallel dispatch and combine as two
+  phases in which a source sends to many experts.
 
 ``schedule_to_trace`` and the layout of ``moe_exchange_trace`` are the
 ``trace.build`` span while telemetry is on.
